@@ -1,0 +1,56 @@
+"""ReLU MLP with the reference's hidden-size clamp and residual option, the
+counterpart of `npf_gwwaveform_tpu/ops/mlp.py::MLP` (eval only, no dropout).
+
+Order: to_hidden -> relu -> (linear_i -> relu [+ residual])* -> out. With
+`fused=True` the whole chain is one call of kernel K2 (`fused_relu_mlp`),
+which on a CPU tensor runs its plain version; the parameters are the same
+either way.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .kernels.mlp_chain import fused_relu_mlp
+
+
+class MLP(nn.Module):
+    """The hidden size is raised to min(input_size, output_size) when it is
+    smaller (the reference's clamp)."""
+
+    def __init__(self, input_size: int, output_size: int, hidden_size: int = 32,
+                 n_hidden_layers: int = 1, is_res: bool = False, fused: bool = False):
+        super().__init__()
+        if n_hidden_layers < 1:
+            raise ValueError("n_hidden_layers must be >= 1")
+        hidden_size = max(hidden_size, min(input_size, output_size))
+        self.n_hidden_layers = n_hidden_layers
+        self.is_res = is_res
+        self.fused = fused
+        self.to_hidden = nn.Linear(input_size, hidden_size)
+        for i in range(n_hidden_layers - 1):
+            self.add_module(f"linear_{i}", nn.Linear(hidden_size, hidden_size))
+        self.out = nn.Linear(hidden_size, output_size)
+
+    def _hidden(self):
+        return [getattr(self, f"linear_{i}") for i in range(self.n_hidden_layers - 1)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hidden = self._hidden()
+        if self.fused:
+            h = self.to_hidden.out_features
+            wh = (torch.stack([l.weight for l in hidden]) if hidden
+                  else x.new_zeros((0, h, h)))
+            bh = torch.stack([l.bias for l in hidden]) if hidden else x.new_zeros((0, h))
+            out = fused_relu_mlp(
+                x.reshape(-1, x.shape[-1]).contiguous(),
+                self.to_hidden.weight, self.to_hidden.bias, wh, bh,
+                self.out.weight, self.out.bias, is_res=self.is_res,
+            )
+            return out.reshape(*x.shape[:-1], self.out.out_features)
+        a = torch.relu(self.to_hidden(x))
+        for layer in hidden:
+            r = torch.relu(layer(a))
+            a = r + a if self.is_res else r
+        return self.out(a)

@@ -1,0 +1,67 @@
+"""The port runs without JAX: with jax, flax, msgpack and the JAX package made
+unimportable, every module of the port and chip_smoke.py's module-level code
+import, and the scorer runs on the CPU. Also: chip_smoke.py fails, printing
+no result, where it cannot run."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+RUN_DIR = os.path.join(REPO, "results", "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1")
+
+_BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "npf_gwwaveform_tpu")
+
+_ISOLATED = f"""
+import sys
+for name in {_BLOCKED!r}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import importlib, importlib.util, pkgutil, runpy
+import npf_gwwaveform_tpu_torch as port
+for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(info.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))  # module level only
+sys.argv = ["score", "--run-dir", {RUN_DIR!r}, "--n-test", "2", "--thetas-from-run",
+            "--device", "cpu"]
+runpy.run_module("npf_gwwaveform_tpu_torch.score", run_name="__main__")
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and m.split(".")[0] in {_BLOCKED!r}]
+assert not loaded, loaded
+"""
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    env.pop("PYTHONSTARTUP", None)
+    return env
+
+
+def test_port_imports_and_scores_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["n"] == 2 and res["device"] == "cpu"
+    assert all(isinstance(res[k], float) for k in ("mean_ll", "median_mismatch"))
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run in full")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env = _env()
+    env.pop("PYTHONPATH")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
