@@ -1,9 +1,11 @@
 """PyTorch and CUDA port of `npf_gwwaveform_tpu` for an NVIDIA H100.
 
-Slice 1: scoring a frozen GW ConvCNP run (forward pass, float32, eval mode).
-The SetConv interpolations and the decoder's MLP chain run hand-written CUDA
-kernels (`csrc/`, built with nvcc at first launch) on CUDA tensors and their
-plain PyTorch versions on CPU tensors. Imports torch and numpy only.
+Slice 1 scores a frozen GW ConvCNP run (`score.py`); slice 2 trains the
+flagship configuration (`train_gw.py`), float32 throughout. The SetConv
+interpolations and the decoder's MLP chain, forward and backward, run
+hand-written CUDA kernels (`csrc/`, built with nvcc at first launch) on CUDA
+tensors and their plain PyTorch versions on CPU tensors. Imports torch and
+numpy only.
 """
 
 from .configs import gw_model_from_summary

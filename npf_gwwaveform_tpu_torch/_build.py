@@ -29,13 +29,19 @@ NVCC_FLAGS = [
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points: name -> argtypes (each returns the cudaError_t of its launch)
+# C entry points: name -> argtypes (the launchers return the cudaError_t of their launches)
 _SIGNATURES = {
     # keys, queries, values, mask, sigma, B, K, Q, C, p, out_sig, out_den, stream
     "npf_setconv_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # x, M, C, w0, b0, wh, bh, L1, H, wout, bout, O, is_res, out, stream
     "npf_mlp_chain_fwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P],
+    # M, C, H, L1, O -> floats of scratch (-1: widths too large)
+    "npf_mlp_chain_bwd_scratch": [_I, _I, _I, _I, _I],
+    # x, g, M, C, w0, b0, wh, bh, L1, H, wout, O, is_res, dx, grads, scratch, stream
+    "npf_mlp_chain_bwd": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
 }
+# return types other than int
+_RESTYPES = {"npf_mlp_chain_bwd_scratch": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
@@ -97,7 +103,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = handle
         return _lib
 

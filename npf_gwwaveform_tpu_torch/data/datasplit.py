@@ -44,11 +44,13 @@ def exact_topn_mask(scores: torch.Tensor, n_indcs: torch.Tensor, static_ub: int,
 @dataclass(frozen=True)
 class GetRandomIndcs:
     """Random subset mask: count n ~ U{a..b} (ratios of n_points when below
-    1) and positions drawn independently per batch element, as the JAX
-    package's eval protocol does (`is_indep_n=True`)."""
+    1), positions drawn independently per batch element. The count is drawn
+    once for the whole batch, as the JAX package's training splitter does,
+    or once per element with `is_indep_n=True`, as its eval splitter does."""
 
     a: float = 0.1
     b: float = 0.5
+    is_indep_n: bool = False
 
     def __call__(self, generator: torch.Generator, batch_size: int, n_points: int):
         def to_count(v):
@@ -58,7 +60,8 @@ class GetRandomIndcs:
         b = to_count(self.b)
         a = min(to_count(self.a), b)
         device = generator.device
-        n_indcs = torch.randint(a, b + 1, (batch_size, 1), generator=generator, device=device)
+        n_shape = (batch_size, 1) if self.is_indep_n else ()
+        n_indcs = torch.randint(a, b + 1, n_shape, generator=generator, device=device)
         scores = torch.rand((batch_size, n_points), generator=generator, device=device)
         if b == 0:
             return torch.zeros((batch_size, n_points), dtype=torch.bool, device=device)

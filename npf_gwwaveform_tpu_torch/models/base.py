@@ -1,5 +1,6 @@
-"""Forward skeleton of the neural-process family, deterministic path only;
-the counterpart of `npf_gwwaveform_tpu/models/base.py::NeuralProcessFamily`.
+"""Forward skeleton of the neural-process family, deterministic path only
+(n_z = 1 in train and eval mode); the counterpart of
+`npf_gwwaveform_tpu/models/base.py::NeuralProcessFamily`.
 
 x-encode -> `encode_globally` -> `trgt_dependent_representation` -> `decode`
 into a diagonal Gaussian with scale `min_sigma_pred + (1 - min_sigma_pred) *

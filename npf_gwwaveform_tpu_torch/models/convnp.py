@@ -1,12 +1,14 @@
-"""Convolutional CNP, eval mode; the counterpart of
+"""Convolutional CNP; the counterpart of
 `npf_gwwaveform_tpu/models/convnp.py::ConvCNP`.
 
 SetConv context -> induced grid `linspace(-1.5, 1.5, 3*density)`, FiLM
 conditioning on the grid, the grid CNN, SetConv grid -> targets, and an
 x-independent decoder. `use_kernels` routes both SetConvs through kernel K1
 and the decoder through kernel K2 (the JAX package's `use_pallas_setconv`
-and `fused_mlp`); it changes no parameter, and on CPU tensors the kernels'
-plain versions run.
+and `fused_mlp`) through their autograd Functions, so the model trains on
+either path; it changes no parameter, and on CPU tensors the kernels' plain
+versions run. `model.train()` switches the grid CNN's BatchNorm to batch
+statistics; the deterministic path has n_z = 1 in both modes.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ..ops.cnn import CNN
 from ..ops.encoders import DiscardIthArg, SinusoidalEncodings
 from ..ops.mlp import MLP
 from ..ops.setconv import SetConv
+from ..utils import init as winit
 from ..utils.helpers import linspace
 from .base import NeuralProcessFamily
 
@@ -50,6 +53,11 @@ class ConvCNP(NeuralProcessFamily):
             self.cond_pos_enc = SinusoidalEncodings(cond_pos_feats)
             self.cond_field = MLP(cond_pos_feats + r_dim, r_dim, n_hidden_layers=2,
                                   hidden_size=r_dim)
+            self.init_params()
+
+    def init_params(self, generator=None) -> None:
+        if self.cond_dim > 0:  # flax's default Dense init, as the JAX model's cond_gamma
+            winit.init_dense(self.cond_gamma, winit.lecun_normal, generator)
 
     def _get_x_induced(self, batch_size: int, device) -> torch.Tensor:
         lo, hi = self.induced_range

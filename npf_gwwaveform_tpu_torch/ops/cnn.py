@@ -1,5 +1,5 @@
-"""Depthwise-separable residual CNN over the induced grid, eval mode; the
-counterpart of `npf_gwwaveform_tpu/ops/cnn.py` (`ResConvBlock`, `CNN`).
+"""Depthwise-separable residual CNN over the induced grid; the counterpart of
+`npf_gwwaveform_tpu/ops/cnn.py` (`ResConvBlock`, `CNN`, flax `BatchNorm`).
 
 The JAX package is channel-last; `CNN` keeps that at its interface and runs
 its blocks channel-first, the layout of `torch.nn.functional.conv1d`. The
@@ -13,29 +13,54 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils import init as winit
 
-class BatchNormEval(nn.Module):
-    """flax `nn.BatchNorm` with running statistics, channel-first [B,C,L]:
-    (x - mean) * (scale * rsqrt(var + eps)) + bias, in flax's order."""
 
-    def __init__(self, n_chan: int, eps: float = 1e-3):
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=eps)` over channel-first
+    [B, C, L], in flax's order: (x - mean) * (scale * rsqrt(var + eps)) + bias.
+
+    Train mode (`module.train()`) normalises with the batch mean and the
+    biased variance E[x^2] - E[x]^2 clamped at 0 (flax's fast variance) over
+    (B, L), with gradients through both, and moves the running buffers
+    `mean` and `var` as running = momentum * running + (1 - momentum) * batch,
+    the biased variance included. Eval mode uses the running buffers.
+    """
+
+    def __init__(self, n_chan: int, eps: float = 1e-3, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(n_chan))
         self.bias = nn.Parameter(torch.zeros(n_chan))
         self.register_buffer("mean", torch.zeros(n_chan))
         self.register_buffer("var", torch.ones(n_chan))
 
+    def init_params(self, generator=None) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        return (x - self.mean[:, None]) * mul[:, None] + self.bias[:, None]
+        if self.training:
+            mean = x.mean(dim=(0, 2))
+            var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(mean.detach(), alpha=1.0 - self.momentum)
+                self.var.mul_(self.momentum).add_(var.detach(), alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
 
 
 def _norm(norm: Optional[str], n_chan: int, eps: float) -> nn.Module:
     if norm in (None, "identity"):
         return nn.Identity()
     if norm == "batch":
-        return BatchNormEval(n_chan, eps)
+        return BatchNorm(n_chan, eps)
     raise ValueError(f"Unknown norm={norm}")
 
 
@@ -50,6 +75,11 @@ class DepthSepConv(nn.Module):
         super().__init__()
         self.depthwise = _depthwise(in_chan, kernel_size)
         self.pointwise = nn.Conv1d(in_chan, out_chan, 1)
+        self.init_params()
+
+    def init_params(self, generator=None) -> None:
+        winit.init_conv(self.depthwise, winit.kaiming_normal_fanout, generator)
+        winit.init_conv(self.pointwise, winit.kaiming_normal_fanout, generator)
 
     def forward(self, x):
         return self.pointwise(self.depthwise(x))
@@ -73,6 +103,11 @@ class ResConvBlock(nn.Module):
         self.norm2 = _norm(norm, in_chan, norm_eps)
         self.conv2_depthwise = _depthwise(in_chan, kernel_size)
         self.conv2_pointwise = nn.Conv1d(in_chan, out_chan, 1)
+        self.init_params()
+
+    def init_params(self, generator=None) -> None:
+        winit.init_conv(self.conv2_depthwise, winit.kaiming_normal_fanout, generator)
+        winit.init_conv(self.conv2_pointwise, winit.kaiming_normal_fanout, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = x

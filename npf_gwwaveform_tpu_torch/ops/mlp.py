@@ -1,10 +1,11 @@
 """ReLU MLP with the reference's hidden-size clamp and residual option, the
-counterpart of `npf_gwwaveform_tpu/ops/mlp.py::MLP` (eval only, no dropout).
+counterpart of `npf_gwwaveform_tpu/ops/mlp.py::MLP` (no dropout).
 
 Order: to_hidden -> relu -> (linear_i -> relu [+ residual])* -> out. With
-`fused=True` the whole chain is one call of kernel K2 (`fused_relu_mlp`),
-which on a CPU tensor runs its plain version; the parameters are the same
-either way.
+`fused=True` the whole chain is one `FusedReluMLPFn`: kernel K2 forward and
+kernel K3 backward, their plain versions on CPU tensors; the parameters are
+the same either way. Initial values follow the JAX scheme
+(`utils/init.py`): hidden layers kaiming-uniform, `out` xavier, biases zero.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .kernels.mlp_chain import fused_relu_mlp
+from ..utils import init as winit
+from .kernels.mlp_chain import FusedReluMLPFn
 
 
 class MLP(nn.Module):
@@ -32,6 +34,12 @@ class MLP(nn.Module):
         for i in range(n_hidden_layers - 1):
             self.add_module(f"linear_{i}", nn.Linear(hidden_size, hidden_size))
         self.out = nn.Linear(hidden_size, output_size)
+        self.init_params()
+
+    def init_params(self, generator=None) -> None:
+        for layer in (self.to_hidden, *self._hidden()):
+            winit.init_dense(layer, winit.hidden_relu_init, generator)
+        winit.init_dense(self.out, winit.mlp_out_init, generator)
 
     def _hidden(self):
         return [getattr(self, f"linear_{i}") for i in range(self.n_hidden_layers - 1)]
@@ -43,10 +51,10 @@ class MLP(nn.Module):
             wh = (torch.stack([l.weight for l in hidden]) if hidden
                   else x.new_zeros((0, h, h)))
             bh = torch.stack([l.bias for l in hidden]) if hidden else x.new_zeros((0, h))
-            out = fused_relu_mlp(
+            out = FusedReluMLPFn.apply(
                 x.reshape(-1, x.shape[-1]).contiguous(),
                 self.to_hidden.weight, self.to_hidden.bias, wh, bh,
-                self.out.weight, self.out.bias, is_res=self.is_res,
+                self.out.weight, self.out.bias, self.is_res,
             )
             return out.reshape(*x.shape[:-1], self.out.out_features)
         a = torch.relu(self.to_hidden(x))

@@ -4,8 +4,10 @@ padded sets; the counterpart of `npf_gwwaveform_tpu/ops/setconv.py`.
 Two paths compute the same function. The plain path keeps the JAX module's
 arithmetic: distances `sqrt(d^2 + 1e-12)`, a max-subtracted masked softmax for
 the weights and a raw exp sum for the density. The kernel path
-(`use_kernel=True`) calls K1 (`setconv_exprbf_fwd`), which uses `|d|` as the
-Pallas kernel does; the two differ by about 1e-12 in the squared distance.
+(`use_kernel=True`) goes through `SetConvExpRBFFn`: K1 forward, which uses
+`|d|` as the Pallas kernel does (the two paths differ by about 1e-12 in the
+squared distance), and the JAX package's tiled recompute backward. The
+resizer starts xavier-uniform with a zero bias, as in JAX.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import init as winit
 from ..utils.helpers import masked_softmax
-from .kernels.setconv import setconv_exprbf_fwd
+from .kernels.setconv import SetConvExpRBFFn
 
 
 def _init_length_scale(max_dist: float, max_dist_weight: float, p: int) -> float:
@@ -43,9 +46,12 @@ class ExpRBF(nn.Module):
     def __init__(self, max_dist: float = 1.0 / 256, max_dist_weight: float = 0.9, p: int = 2):
         super().__init__()
         self.p = p
-        self.length_scale_param = nn.Parameter(
-            torch.full((1,), _init_length_scale(max_dist, max_dist_weight, p))
-        )
+        self._init_value = _init_length_scale(max_dist, max_dist_weight, p)
+        self.length_scale_param = nn.Parameter(torch.full((1,), self._init_value))
+
+    def init_params(self, generator=None) -> None:
+        with torch.no_grad():
+            self.length_scale_param.fill_(self._init_value)
 
     def sigma(self) -> torch.Tensor:
         """[1] float32 length scale."""
@@ -69,6 +75,10 @@ class SetConv(nn.Module):
         self.use_kernel = use_kernel
         self.rbf = ExpRBF()
         self.resizer = nn.Linear(in_channels + 1, out_channels)
+        self.init_params()
+
+    def init_params(self, generator=None) -> None:
+        winit.init_dense(self.resizer, winit.switchable(winit.xavier_uniform), generator)
 
     def forward(self, keys_x, queries_x, values, mask_keys: Optional[torch.Tensor] = None):
         if mask_keys is None:
@@ -76,13 +86,13 @@ class SetConv(nn.Module):
         if self.use_kernel:
             if keys_x.shape[-1] != 1:
                 raise ValueError("the SetConv kernel takes x_dim == 1")
-            signal, density = setconv_exprbf_fwd(
+            signal, density = SetConvExpRBFFn.apply(
                 keys_x[..., 0].float().contiguous(),
                 queries_x[..., 0].float().contiguous(),
                 values.float().contiguous(),
                 mask_keys.float().contiguous(),
                 self.rbf.sigma().float().contiguous(),
-                p=self.rbf.p,
+                self.rbf.p,
             )
             targets = torch.cat([signal, density[..., None]], dim=-1)
         else:

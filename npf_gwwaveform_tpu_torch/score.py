@@ -87,7 +87,7 @@ def score_batch(model, splitter, generator, theta, gen, space, n_points: int = 2
 def eval_splitter(n_context: int) -> CntxtTrgtSplitter:
     """The eval split: per-waveform context counts U{0..n_context}."""
     return CntxtTrgtSplitter(
-        contexts_getter=GetRandomIndcs(a=0.0, b=n_context),
+        contexts_getter=GetRandomIndcs(a=0.0, b=n_context, is_indep_n=True),
         targets_getter=get_all_indcs,
     )
 

@@ -1,10 +1,11 @@
-"""Read a frozen run's flax checkpoint with the standard library and numpy,
-and map it onto the port's modules.
+"""Read and write a run's flax checkpoint with the standard library and
+numpy, and map it onto and off the port's modules.
 
 `params.msgpack` and `extra_vars.msgpack` are flax `serialization.to_bytes`
 output: msgpack maps of str keys whose array leaves are msgpack extension
 type 1, itself a msgpack array (shape, dtype name, raw C-order bytes). The
-reader decodes that subset of msgpack; it imports neither flax nor msgpack.
+reader decodes that subset of msgpack and the writer encodes it byte for byte
+as flax does; neither imports flax or msgpack.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import struct
 import numpy as np
 import torch
 
-__all__ = ["read_msgpack", "load_run_params", "params_from_flax"]
+__all__ = ["read_msgpack", "write_msgpack", "load_run_params", "params_from_flax",
+           "flax_from_params", "save_run_params"]
 
 _EXT_NDARRAY = 1  # flax's msgpack extension code for an ndarray
 
@@ -149,3 +151,86 @@ def params_from_flax(params: dict, extra_vars: dict = None) -> dict:
                 arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
             state[".".join(mods + [name])] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return state
+
+
+def _pack_uint(n: int, codes, fix_max: int = -1, fix_base: int = 0) -> bytes:
+    """A msgpack length or unsigned int: the fix form up to fix_max, else the
+    8-, 16- or 32-bit form whose type byte `codes` lists (None: absent)."""
+    if n <= fix_max:
+        return bytes([fix_base | n])
+    for code, fmt, limit in zip(codes, ("B", "H", "I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= limit:
+            return bytes([code]) + struct.pack(">" + fmt, n)
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack(obj, out: list) -> None:
+    if isinstance(obj, dict):
+        out.append(_pack_uint(len(obj), (None, 0xDE, 0xDF), 15, 0x80))
+        for k, v in sorted((str(k), v) for k, v in obj.items()):  # flax sorts the keys
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_pack_uint(len(obj), (None, 0xDC, 0xDD), 15, 0x90))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        out.append(_pack_uint(len(raw), (0xD9, 0xDA, 0xDB), 31, 0xA0) + raw)
+    elif isinstance(obj, bytes):
+        out.append(_pack_uint(len(obj), (0xC4, 0xC5, 0xC6)) + obj)
+    elif isinstance(obj, int) and 0 <= obj < 2**64:
+        out.append(bytes([obj]) if obj < 0x80 else
+                   _pack_uint(obj, (0xCC, 0xCD, 0xCE)) if obj <= 0xFFFFFFFF else
+                   b"\xcf" + struct.pack(">Q", obj))
+    elif isinstance(obj, np.ndarray):
+        arr = np.ascontiguousarray(obj)
+        payload: list = []
+        _pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")], payload)
+        data = b"".join(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        head = (bytes([fixext[len(data)]]) if len(data) in fixext
+                else _pack_uint(len(data), (0xC7, 0xC8, 0xC9)))
+        out.append(head + struct.pack(">b", _EXT_NDARRAY) + data)
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} to a flax msgpack file")
+
+
+def write_msgpack(path: str, tree) -> None:
+    """Encode nested dicts of numpy arrays as flax `serialization.to_bytes`
+    does, byte for byte (keys sorted)."""
+    out: list = []
+    _pack(tree, out)
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
+def flax_from_params(state: dict, buffer_names) -> tuple:
+    """The inverse of `params_from_flax`: a state dict of the port's modules
+    -> (params, extra_vars) numpy trees in flax's layout; the entries named in
+    `buffer_names` (BatchNorm's running `mean`/`var`) go to `batch_stats`."""
+    inverse = {v: k for k, v in _RENAMES.items()}
+    buffer_names = set(buffer_names)
+    params, stats = {}, {}
+    for key, t in state.items():
+        *mods, name = (inverse.get(p, p) for p in key.split("."))
+        arr = t.detach().cpu().float().numpy()
+        if name == "weight":
+            name = "kernel"
+            arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
+        node = stats if key in buffer_names else params
+        for m in mods:
+            node = node.setdefault(m, {})
+        # a copy: a CPU tensor's numpy view would follow later in-place updates
+        node[name] = np.array(arr, order="C", copy=True)
+    return params, ({"batch_stats": stats} if stats else {})
+
+
+def save_run_params(run_dir: str, model: torch.nn.Module) -> None:
+    """Write `params.msgpack` and `extra_vars.msgpack` of `model` into run_dir,
+    readable by `load_run_params` and by flax's `from_bytes`."""
+    params, extra = flax_from_params(model.state_dict(),
+                                     [n for n, _ in model.named_buffers()])
+    os.makedirs(run_dir, exist_ok=True)
+    write_msgpack(os.path.join(run_dir, "params.msgpack"), params)
+    write_msgpack(os.path.join(run_dir, "extra_vars.msgpack"), extra)

@@ -1,7 +1,8 @@
 """The port runs without JAX: with jax, flax, msgpack and the JAX package made
 unimportable, every module of the port and chip_smoke.py's module-level code
-import, and the scorer runs on the CPU. Also: chip_smoke.py fails, printing
-no result, where it cannot run."""
+import, the scorer runs on the CPU, and `train_gw` trains 2 steps on the CPU
+and scores its run. Also: chip_smoke.py fails, printing no result, where it
+cannot run."""
 
 import json
 import os
@@ -38,6 +39,23 @@ assert not loaded, loaded
 """
 
 
+_TRAIN_ISOLATED = f"""
+import sys
+for name in {_BLOCKED!r}:
+    sys.modules[name] = None
+import runpy
+sys.argv = ["train_gw", "--device", "cpu", "--steps", "2", "--batch", "2", "--n-test", "2",
+            "--out", sys.argv[1]]
+runpy.run_module("npf_gwwaveform_tpu_torch.train_gw", run_name="__main__")
+for name in ("utils.init", "training.optim", "training.state", "training.trainer",
+             "training.checkpoint"):
+    assert "npf_gwwaveform_tpu_torch." + name in sys.modules, name
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and m.split(".")[0] in {_BLOCKED!r}]
+assert not loaded, loaded
+"""
+
+
 def _env():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("PYTHONSTARTUP", None)
@@ -51,6 +69,16 @@ def test_port_imports_and_scores_without_jax():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["n"] == 2 and res["device"] == "cpu"
     assert all(isinstance(res[k], float) for k in ("mean_ll", "median_mismatch"))
+
+
+def test_train_gw_runs_without_jax(tmp_path):
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_ISOLATED, str(tmp_path)], cwd=REPO,
+                          env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["steps"] == 2 and isinstance(res["test_ll_per_wf"], float)
+    for name in ("params.msgpack", "extra_vars.msgpack", "history.json", "summary.json"):
+        assert os.path.exists(os.path.join(res["run_dir"], name)), name
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

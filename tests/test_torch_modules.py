@@ -2,7 +2,9 @@
 the same parameters (a flax `init`, carried over with `params_from_flax`).
 
 Tolerances: 1e-5 absolute at op level (float32 on both sides, summation
-order differs); masks are compared for equality.
+order differs); masks are compared for equality. Init schemes: the empirical
+std of each port layer's draw within 5% of the JAX scheme's draw at the same
+shape (at least 16k entries each: the sampling error of a std is ~1%).
 """
 
 import flax
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from npf_gwwaveform_tpu.configs import _cnn_factory
+import npf_gwwaveform_tpu.data.datasplit as jax_datasplit
 from npf_gwwaveform_tpu.data.datasplit import exact_topn_mask as jax_exact_topn_mask
 from npf_gwwaveform_tpu.distributions import NormalDiag as JaxNormalDiag
 from npf_gwwaveform_tpu.losses import CNPFLoss as JaxCNPFLoss
@@ -23,15 +26,19 @@ from npf_gwwaveform_tpu.ops.encoders import SinusoidalEncodings as JaxSinusoidal
 from npf_gwwaveform_tpu.ops.mlp import MLP as JaxMLP
 from npf_gwwaveform_tpu.ops.setconv import SetConv as JaxSetConv
 from npf_gwwaveform_tpu.utils import helpers as jax_helpers
-from npf_gwwaveform_tpu_torch.data.datasplit import exact_topn_mask
+from npf_gwwaveform_tpu.utils import init as jax_init
+from npf_gwwaveform_tpu_torch.data import datasplit
+from npf_gwwaveform_tpu_torch.data.datasplit import GetRandomIndcs, exact_topn_mask
 from npf_gwwaveform_tpu_torch.distributions import NormalDiag
 from npf_gwwaveform_tpu_torch.losses import CNPFLoss, NPFOutput
-from npf_gwwaveform_tpu_torch.ops.cnn import CNN, ResConvBlock
+from npf_gwwaveform_tpu_torch.ops.cnn import CNN, BatchNorm, ResConvBlock
 from npf_gwwaveform_tpu_torch.ops.encoders import SinusoidalEncodings
 from npf_gwwaveform_tpu_torch.ops.mlp import MLP
 from npf_gwwaveform_tpu_torch.ops.setconv import SetConv
+from npf_gwwaveform_tpu_torch.score import eval_splitter
 from npf_gwwaveform_tpu_torch.training.checkpoint import params_from_flax, read_msgpack
 from npf_gwwaveform_tpu_torch.utils import helpers
+from npf_gwwaveform_tpu_torch.utils import init as winit
 from npf_gwwaveform_tpu_torch.utils.helpers import linspace, masked_softmax
 
 torch.set_num_threads(1)
@@ -246,3 +253,137 @@ def test_msgpack_reader_matches_flax(tmp_path):
             np.testing.assert_array_equal(a, b, err_msg=str(p))
         else:
             assert a == b and type(a) is type(b), p
+
+
+def test_batchnorm_train_mode_matches_flax():
+    """Batch statistics over (B, L) with flax's fast biased variance, the
+    normalisation in flax's order, gradients through the statistics, and the
+    running buffers moved with momentum 0.9 (the biased variance included)."""
+    rng = np.random.default_rng(10)
+    x = (rng.normal(size=(4, 33, 6)) * 3 + 1.5).astype(np.float32)  # [B, L, C]
+    g = rng.normal(size=x.shape).astype(np.float32)
+    jm = flax.linen.BatchNorm(momentum=0.9, epsilon=1e-3)
+    variables = _perturb(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), use_running_average=False),
+                         rng)
+    variables["batch_stats"]["var"] = np.abs(variables["batch_stats"]["var"])
+
+    def f(params, x):
+        y, upd = jm.apply({"params": params, "batch_stats": variables["batch_stats"]}, x,
+                          use_running_average=False, mutable=["batch_stats"])
+        return jnp.sum(y * g), (y, upd["batch_stats"])
+
+    (_, (ref_y, ref_stats)), (ref_dp, ref_dx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        variables["params"], jnp.asarray(x))
+    bn = _load(BatchNorm(6, eps=1e-3), variables).train()
+    xt = torch.from_numpy(x).transpose(1, 2).contiguous().requires_grad_()
+    y = bn(xt)
+    (y * torch.from_numpy(g).transpose(1, 2)).sum().backward()
+    np.testing.assert_allclose(y.detach().transpose(1, 2).numpy(), np.asarray(ref_y), atol=ATOL)
+    np.testing.assert_allclose(xt.grad.transpose(1, 2).numpy(), np.asarray(ref_dx), atol=ATOL)
+    np.testing.assert_allclose(bn.scale.grad.numpy(), np.asarray(ref_dp["scale"]), atol=ATOL)
+    np.testing.assert_allclose(bn.bias.grad.numpy(), np.asarray(ref_dp["bias"]), atol=ATOL)
+    for name in ("mean", "var"):
+        np.testing.assert_allclose(getattr(bn, name).numpy(), np.asarray(ref_stats[name]),
+                                   atol=ATOL, rtol=1e-5)
+    bn.eval()  # eval mode reads the buffers it just moved
+    ref_eval = jm.apply({"params": variables["params"], "batch_stats": ref_stats}, jnp.asarray(x),
+                        use_running_average=True)
+    with torch.no_grad():
+        out = bn(torch.from_numpy(x).transpose(1, 2)).transpose(1, 2).numpy()
+    np.testing.assert_allclose(out, np.asarray(ref_eval), atol=ATOL)
+
+
+@pytest.mark.parametrize("is_indep_n", [False, True])
+def test_get_random_indcs_matches_jax_with_injected_draws(monkeypatch, is_indep_n):
+    """The same count(s) and scores, injected into both splitters, give the
+    same mask; the default draws one count for the whole batch, as JAX's."""
+    rng = np.random.default_rng(11)
+    B, N, b = 16, 256, 192
+    scores = rng.uniform(size=(B, N)).astype(np.float32)
+    n = rng.integers(0, b + 1, size=(B, 1) if is_indep_n else ()).astype(np.int32)
+    shapes = {}
+
+    def fake_randint(*args, **kw):
+        shape = kw.get("size", args[2] if len(args) > 2 else args[1])
+        shapes["torch"] = tuple(shape)
+        return torch.from_numpy(np.asarray(n, np.int64)).reshape(shape)
+
+    monkeypatch.setattr(datasplit.torch, "randint", fake_randint)
+    monkeypatch.setattr(datasplit.torch, "rand", lambda *a, **kw: torch.from_numpy(scores))
+    getter = GetRandomIndcs(a=0.0, b=b) if not is_indep_n else GetRandomIndcs(0.0, b, True)
+    out = getter(torch.Generator(), B, N).numpy()
+
+    def jax_randint(key, shape, lo, hi):
+        shapes["jax"] = tuple(shape)
+        return jnp.asarray(n).reshape(shape)
+
+    monkeypatch.setattr(jax_datasplit.jax.random, "randint", jax_randint)
+    monkeypatch.setattr(jax_datasplit.jax.random, "uniform", lambda *a, **kw: jnp.asarray(scores))
+    ref = np.asarray(jax_datasplit.GetRandomIndcs(a=0.0, b=b, is_indep_n=is_indep_n)(
+        jax.random.PRNGKey(0), B, N))
+    np.testing.assert_array_equal(out, ref)
+    assert shapes["torch"] == shapes["jax"] == ((B, 1) if is_indep_n else ())
+    assert GetRandomIndcs().is_indep_n is False
+
+
+def test_eval_splitter_masks_unchanged():
+    """The scorer's splitter draws one count per waveform, then the scores,
+    from its generator: the masks are those draws' exact_topn_mask, bit for bit."""
+    B, N, b = 8, 256, 192
+    batch = eval_splitter(b)(torch.Generator().manual_seed(3), torch.zeros(B, N, 1),
+                             torch.zeros(B, N, 1))
+    g = torch.Generator().manual_seed(3)
+    n = torch.randint(0, b + 1, (B, 1), generator=g)
+    scores = torch.rand((B, N), generator=g)
+    assert torch.equal(batch["mask_cntxt"], exact_topn_mask(scores, n, b, B))
+
+
+def _jax_std(init, shape):
+    return float(np.std(np.asarray(init(jax.random.PRNGKey(1), shape, jnp.float32))))
+
+
+@pytest.mark.parametrize("realized", [False, True])
+def test_init_schemes_match_jax(realized):
+    """Each port layer's initial weights against the JAX scheme it stands
+    for, at the same (flax) shape; biases start at zero."""
+    jax_init.set_realized_init(realized)
+    winit.set_realized_init(realized)
+    try:
+        torch.manual_seed(0)
+        mlp = MLP(256, 300, hidden_size=256, n_hidden_layers=2)
+        setconv = SetConv(255, 256)
+        block = ResConvBlock(256, 256, kernel_size=19, norm="batch", n_conv_layers=2)
+        gamma = torch.nn.Linear(512, 512)
+        winit.init_dense(gamma, winit.lecun_normal)
+        hidden = jax_init.linear_init_for(flax.linen.relu)
+        cases = [
+            (mlp.to_hidden.weight, hidden, (256, 256)),
+            (mlp.linear_0.weight, hidden, (256, 256)),
+            (mlp.out.weight, jax_init.mlp_out_init, (256, 300)),
+            (setconv.resizer.weight, jax_init.switchable(jax_init.xavier_uniform), (256, 256)),
+            (block.conv1.depthwise.weight, jax_init.kaiming_normal_fanout, (19, 1, 256)),
+            (block.conv1.pointwise.weight, jax_init.kaiming_normal_fanout, (1, 256, 256)),
+            (block.conv2_depthwise.weight, jax_init.kaiming_normal_fanout, (19, 1, 256)),
+            (block.conv2_pointwise.weight, jax_init.kaiming_normal_fanout, (1, 256, 256)),
+            (gamma.weight, flax.linen.initializers.lecun_normal(), (512, 512)),
+        ]
+        for w, init, shape in cases:
+            port_std, ref_std = float(w.detach().std()), _jax_std(init, shape)
+            assert abs(port_std / ref_std - 1) < 0.05, (shape, port_std, ref_std)
+        for b in (mlp.to_hidden.bias, mlp.out.bias, setconv.resizer.bias,
+                  block.conv1.depthwise.bias, block.conv2_pointwise.bias, gamma.bias):
+            assert torch.count_nonzero(b) == 0
+        assert torch.equal(block.norm1.scale, torch.ones(256))
+    finally:
+        jax_init.set_realized_init(False)
+        winit.set_realized_init(False)
+
+
+def test_init_module_is_seeded():
+    """`init_module` draws every parameter again from a seeded generator:
+    the same seed gives the same model, another seed another one."""
+    def draw(seed):
+        m = MLP(8, 3, hidden_size=16, n_hidden_layers=3)
+        winit.init_module(m, torch.Generator().manual_seed(seed))
+        return torch.cat([p.detach().flatten() for p in m.parameters()])
+    assert torch.equal(draw(0), draw(0)) and not torch.equal(draw(0), draw(1))
