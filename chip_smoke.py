@@ -7,13 +7,18 @@ NVIDIA H100.
 Phases, each announced with the seconds elapsed:
   1. device: the card's name and power limit, torch and nvcc versions;
   2. build: both CUDA kernels with one nvcc call (ptxas resource report);
-  3. K1 (SetConv forward) against its plain version at the two path shapes
-     and one K > 2048 shape;
+  3. K1 (SetConv forward) against its plain version at the two path shapes of
+     the scoring batch and of the train step, with the paths' own masks
+     (U{0..192} of 256 context points real, every grid point real), and at
+     three other cases: random masks at the grid->targets shape, K = 5000
+     keys, and the long-waveform width C = 512 (K = 2048, Q = 1536); two
+     launches must give the same bits;
   4. K2 (fused MLP chain forward) against its plain version at the decoder
      shape and two other cases;
   5. K3 (fused MLP chain backward) against its plain version at the training
-     and scoring shapes, with L1=0 and no biases, and at a ragged row count;
-     two launches must give the same bits;
+     and scoring shapes, with L1=0 and no biases, at a ragged row count, and
+     at widths over 128 (H = 256 and 320, L1 = 2, with and without the
+     residual); two launches must give the same bits;
   6. autograd through the kernels against the plain modules at the training
      shapes: a SetConv through K1 and the decoder MLP through K2 and K3;
   7. the scoring path: score the 2048 thetas recorded in the flagship run
@@ -45,6 +50,9 @@ from npf_gwwaveform_tpu_torch import _build
 from npf_gwwaveform_tpu_torch import train_gw
 from npf_gwwaveform_tpu_torch.configs import gw_train_summary
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
+from npf_gwwaveform_tpu_torch.kernel_measure import (
+    k1_bound, k1_inputs, k2_bound, k3_bound, k3_inputs, time_ms,
+)
 from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
     fused_relu_mlp, fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain, fused_relu_mlp_plain,
 )
@@ -89,10 +97,6 @@ TRAIN_STEPS, TRAIN_BATCH = 500, 32
 # JAX step to float32 rounding on identical batches).
 LOSS_FALL_NATS = 300.0
 
-# H100 SXM published peaks (dense): HBM bytes/s and float32 outside tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-
 _T0 = time.perf_counter()
 
 
@@ -100,51 +104,10 @@ def phase(name: str) -> None:
     print(f"== {name} (t={time.perf_counter() - _T0:.1f}s)", flush=True)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over reps launches, with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound(n_bytes: float, n_ops: float):
-    """The least time (ms) for the work, and what sets it."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def k1_case(name, B, K, Q, C, sigma, gen, empty_rows, path, max_real=None):
-    """Inputs of one K1 shape: keys/queries on the path's grids when `path`,
-    U{0..max_real} real keys per row (default K), the given rows empty."""
-    dev = "cuda"
-    if path:
-        keys = linspace(-1.0, 1.0, K, device=dev) if K == 256 else linspace(-1.5, 1.5, K, device=dev)
-        queries = linspace(-1.5, 1.5, Q, device=dev) if Q == 384 else linspace(-1.0, 1.0, Q, device=dev)
-        keys = keys[None].expand(B, K).contiguous()
-        queries = queries[None].expand(B, Q).contiguous()
-    else:
-        keys = torch.sort(torch.rand((B, K), generator=gen, device=dev) * 2 - 1, dim=-1).values
-        queries = torch.rand((B, Q), generator=gen, device=dev) * 3 - 1.5
-    values = torch.randn((B, K, C), generator=gen, device=dev)
-    n_real = torch.randint(0, (max_real or K) + 1, (B, 1), generator=gen, device=dev)
-    scores = torch.rand((B, K), generator=gen, device=dev)
-    mask = (scores.argsort(dim=-1).argsort(dim=-1) < n_real).float()
-    mask[empty_rows] = 0.0
-    sig = torch.full((1,), sigma, device=dev)
-    return name, (keys, queries, values, mask, sig)
 
 
 def check_k1(cases):
@@ -154,22 +117,25 @@ def check_k1(cases):
         B, K = keys.shape
         Q, C = queries.shape[1], values.shape[-1]
         s_k, d_k = setconv_exprbf_fwd(*args)
+        s_k2, d_k2 = setconv_exprbf_fwd(*args)
         s_p, d_p = setconv_exprbf_plain(*args)
         torch.cuda.synchronize()
+        same = torch.equal(s_k, s_k2) and torch.equal(d_k, d_k2)
         sig_err = (s_k - s_p).abs().max().item()
         den_rel = ((d_k - d_p).abs() / (d_p.abs() + 1e-30)).max().item()
         empty = mask.sum(-1) == 0
         empty_ok = bool((s_k[empty] == 0).all() and (d_k[empty] == 0).all()) if empty.any() else True
         finite = bool(torch.isfinite(s_k).all() and torch.isfinite(d_k).all())
         print(f"K1 {name}: B={B} K={K} Q={Q} C={C} signal max abs err {sig_err:.3e}, "
-              f"density max rel err {den_rel:.3e}, empty rows zero {empty_ok}")
+              f"density max rel err {den_rel:.3e}, empty rows zero {empty_ok}; repeat "
+              f"bit-identical {same}")
         if not (finite and empty_ok and sig_err <= K1_SIGNAL_ATOL and den_rel <= K1_DENSITY_RTOL):
             raise AssertionError(f"K1 {name} disagrees with its plain version")
+        if not same:
+            raise AssertionError(f"K1 {name}: two launches on the same inputs differ")
         ms = time_ms(lambda: setconv_exprbf_fwd(*args))
         plain_ms = time_ms(lambda: setconv_exprbf_plain(*args), reps=5)
-        n_real_keys = mask.sum().item()
-        n_bytes = 4 * (2 * B * K + B * Q + B * K * C + B * Q * C + B * Q)
-        bms, by = bound(n_bytes, n_real_keys * Q * (2 * C + 10))
+        bms, by = k1_bound(keys, queries, values, mask)
         rows.append(dict(shape=name, B=B, K=K, Q=Q, C=C, max_abs_err=sig_err,
                          density_max_rel_err=den_rel, ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by))
@@ -206,24 +172,11 @@ def check_k2(cases):
             raise AssertionError(f"K2 {name} disagrees with its plain version")
         ms = time_ms(lambda: fused_relu_mlp(*args, is_res=is_res))
         plain_ms = time_ms(lambda: fused_relu_mlp_plain(*args, is_res=is_res))
-        n_bytes = 4 * (M * C + M * O + sum(t.numel() for t in args[1:] if t is not None))
-        bms, by = bound(n_bytes, 2 * M * (C * H + L1 * H * H + H * O))
+        bms, by = k2_bound(*args)
         rows.append(dict(shape=name, M=M, C=C, H=H, L1=L1, O=O, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by))
         print(f"   kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return rows
-
-
-def k3_case(name, M, C, H, L1, O, is_res, biases, gen, weights=None):
-    dev = "cuda"
-    x = torch.randn((M, C), generator=gen, device=dev)
-    g = torch.randn((M, O), generator=gen, device=dev)
-    if weights is None:
-        def w(*shape):
-            return torch.randn(shape, generator=gen, device=dev) / shape[-1] ** 0.5
-        weights = (w(H, C), w(H) if biases else None, w(L1, H, H),
-                   w(L1, H) if biases else None, w(O, H))
-    return name, (x, g, *weights), is_res
 
 
 def check_k3(cases):
@@ -250,15 +203,7 @@ def check_k3(cases):
             raise AssertionError(f"K3 {name} disagrees with its plain version or is not repeatable")
         ms = time_ms(lambda: fused_relu_mlp_bwd(*args, is_res=is_res))
         plain_ms = time_ms(lambda: fused_relu_mlp_bwd_plain(*args, is_res=is_res))
-        n_w = H * C + L1 * H * H + O * H
-        n_params = n_w + H + L1 * H + O
-        # reads x, g and the weights, writes dx and every gradient
-        n_bytes = 4 * (2 * M * C + M * O + (n_w + H * (b0 is not None) + L1 * H * (bh is not None))
-                       + n_params)
-        # forward recompute of the hidden chain, then the input and the weight
-        # gradient of every layer
-        n_ops = 2 * M * (C * H + L1 * H * H) + 4 * M * n_w
-        bms, by = bound(n_bytes, n_ops)
+        bms, by = k3_bound(*args)
         rows.append(dict(shape=name, M=M, C=C, H=H, L1=L1, O=O, max_abs_err=rel[worst], ms=ms,
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by))
         print(f"   kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
@@ -416,13 +361,18 @@ def main() -> int:
 
     phase("K1 setconv_fwd vs plain")
     k1_rows = check_k1([
-        k1_case("ctx->grid", 256, 256, 384, 1, sig_ctx, gen, [0, 7], path=True,
-                max_real=model_ctx),
-        k1_case("grid->trgt", 256, 384, 256, 128, sig_trgt, gen, [3], path=True),
-        k1_case("ctx->grid train", TRAIN_BATCH, 256, 384, 1, sig_ctx, gen, [0], path=True,
-                max_real=model_ctx),
-        k1_case("grid->trgt train", TRAIN_BATCH, 384, 256, 128, sig_trgt, gen, [], path=True),
-        k1_case("large-K", 4, 5000, 512, 8, 0.05, gen, [2], path=False),
+        # the paths' shapes and masks: the scoring batch, then the train step
+        ("ctx->grid", k1_inputs(256, 256, 384, 1, sig_ctx, gen, [0, 7], max_real=model_ctx)),
+        ("grid->trgt", k1_inputs(256, 384, 256, 128, sig_trgt, gen, max_real="all")),
+        ("ctx->grid train", k1_inputs(TRAIN_BATCH, 256, 384, 1, sig_ctx, gen, [0],
+                                      max_real=model_ctx)),
+        ("grid->trgt train", k1_inputs(TRAIN_BATCH, 384, 256, 128, sig_trgt, gen,
+                                       max_real="all")),
+        # off the paths: random masks with an empty row, many keys, the
+        # long-waveform runs' width (ROADMAP queue 1, item 3)
+        ("grid->trgt random mask", k1_inputs(256, 384, 256, 128, sig_trgt, gen, [3])),
+        ("large-K", k1_inputs(4, 5000, 512, 8, 0.05, gen, [2], path=False)),
+        ("large-C", k1_inputs(4, 2048, 1536, 512, 0.02, gen, [1], path=False)),
     ])
 
     phase("K2 mlp_chain_fwd vs plain")
@@ -443,12 +393,14 @@ def main() -> int:
 
         phase("K3 mlp_chain_bwd vs plain")
         k3_rows = check_k3([
-            k3_case("decoder train", TRAIN_BATCH * 256, 128, 128, 3, 2, False, True, gen,
-                    weights=dec_w[:5]),
-            k3_case("decoder score shape", 65536, 128, 128, 3, 2, False, True, gen,
-                    weights=dec_w[:5]),
-            k3_case("no-hidden residual no-bias", 1000, 128, 128, 0, 3, True, False, gen),
-            k3_case("ragged residual", 4099, 37, 64, 2, 5, True, True, gen),
+            ("decoder train", k3_inputs(TRAIN_BATCH * 256, 128, 128, 3, 2, True, gen, dec_w[:5]),
+             False),
+            ("decoder score shape", k3_inputs(65536, 128, 128, 3, 2, True, gen, dec_w[:5]), False),
+            ("no-hidden residual no-bias", k3_inputs(1000, 128, 128, 0, 3, False, gen), True),
+            ("ragged residual", k3_inputs(4099, 37, 64, 2, 5, True, gen), True),
+            # widths past one 128-column pass of the kernel's products
+            ("wide", k3_inputs(3001, 200, 256, 2, 3, True, gen), False),
+            ("wide residual", k3_inputs(3001, 200, 320, 2, 3, True, gen), True),
         ])
 
     phase("autograd through K1, K2, K3 vs the plain modules")
@@ -458,7 +410,7 @@ def main() -> int:
     setconv_exprbf_fwd.launches = 0
     fused_relu_mlp.launches = 0
     fused_relu_mlp_bwd.launches = 0
-    out = score_run(RUN_DIR, N_TEST, thetas_from_run=True, device="cuda")
+    out = score_run(RUN_DIR, N_TEST, thetas_from=RUN_DIR, device="cuda")
     score_launches = (setconv_exprbf_fwd.launches, fused_relu_mlp.launches,
                       fused_relu_mlp_bwd.launches)
     n_batches = -(-N_TEST // 256)
@@ -485,7 +437,7 @@ def main() -> int:
     with torch.inference_mode():
         for label, m in (("kernel", model), ("plain", plain_model)):
             g = torch.Generator(device="cuda").manual_seed(1)
-            ll, mm, o = score_batch(m, splitter, g, theta, gw_gen, space)
+            ll, _, _, o = score_batch(m, splitter, g, theta, gw_gen, space)
             outs[label] = (o.p_yCc.loc, o.p_yCc.scale, ll)
             torch.cuda.synchronize()
             t = []
@@ -551,7 +503,7 @@ def main() -> int:
         with torch.inference_mode():
             for m in (trained, reloaded):
                 g = torch.Generator(device="cuda").manual_seed(2)
-                _, _, o = score_batch(m, splitter, g, theta, gw_gen, space)
+                *_, o = score_batch(m, splitter, g, theta, gw_gen, space)
                 preds.append((o.p_yCc.loc, o.p_yCc.scale))
         same = all(torch.equal(a, b) for a, b in zip(*preds))
         scored = score_run(run_dir, 256, device="cuda")

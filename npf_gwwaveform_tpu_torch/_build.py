@@ -1,14 +1,19 @@
 """Build the port's CUDA kernels with one nvcc call and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled by a single `nvcc` invocation into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds). The library lands in the git-ignored `build/` directory of
-this package, named by a hash of the sources and flags, and is built at the
-first kernel launch of a process, never at import.
+Every `csrc/*.cu` file (with the `csrc/*.cuh` headers they include) is
+compiled by a single `nvcc` invocation into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds). The library lands
+in the git-ignored `build/` directory of this package, named by a hash of the
+sources and flags, and is built at the first kernel launch of a process,
+never at import. `build(csrc_dir=...)` and `load` build and bind another
+directory of sources with the same entry points, and `using` routes the
+wrappers' launches to it, for comparing two versions of the kernels in one
+process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -54,8 +59,8 @@ class BuildResult:
     log: str  # nvcc's output (ptxas resource usage when verbose)
 
 
-def sources() -> list:
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def sources(csrc_dir: str = CSRC_DIR) -> list:
+    return sorted(glob.glob(os.path.join(csrc_dir, "*.cu")))
 
 
 def _nvcc() -> str:
@@ -68,18 +73,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(verbose: bool = False) -> BuildResult:
-    """Compile all kernels into one shared library unless it already exists.
+def library_path(csrc_dir: str = CSRC_DIR) -> str:
+    """Where the library of `csrc_dir` is built: named by a hash of the nvcc
+    flags and of every source and header, so that any edit rebuilds it."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources(csrc_dir) + sorted(glob.glob(os.path.join(csrc_dir, "*.cuh"))):
+        with open(s, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"libnpf_kernels_{digest.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False, csrc_dir: str = CSRC_DIR) -> BuildResult:
+    """Compile all kernels of `csrc_dir` into one shared library unless it
+    already exists.
 
     verbose adds `-Xptxas -v`, whose report (registers, shared memory and
     spills per kernel) is returned in `log`; it does not change the binary.
     """
-    srcs = sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        with open(s, "rb") as f:
-            digest.update(f.read())
-    path = os.path.join(BUILD_DIR, f"libnpf_kernels_{digest.hexdigest()[:16]}.so")
+    srcs = sources(csrc_dir)
+    path = library_path(csrc_dir)
     if os.path.exists(path) and not verbose:
         return BuildResult(path, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -94,18 +106,37 @@ def build(verbose: bool = False) -> BuildResult:
     return BuildResult(path, seconds, proc.stdout + proc.stderr)
 
 
+def load(path: str) -> ctypes.CDLL:
+    """A built kernel library with its entry points' signatures set."""
+    handle = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build().path)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = _RESTYPES.get(name, ctypes.c_int)
-            _lib = handle
+            _lib = load(build().path)
         return _lib
+
+
+@contextlib.contextmanager
+def using(handle: ctypes.CDLL):
+    """Inside the block, `lib()` is `handle` (another build, from `load`), so
+    every wrapper launches that build's kernels."""
+    global _lib
+    with _lock:
+        prev, _lib = _lib, handle
+    try:
+        yield handle
+    finally:
+        with _lock:
+            _lib = prev
 
 
 def check(err: int, name: str) -> None:

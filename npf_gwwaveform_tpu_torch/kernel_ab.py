@@ -1,0 +1,153 @@
+"""Two builds of the SetConv forward (K1) and MLP-chain backward (K3) kernels,
+timed in turns in one process on one card: the sources in the package's
+`csrc/` against those of another directory with the same C entry points
+(an earlier commit's `csrc/`, unpacked with `git show` or `git archive`).
+
+    python -m npf_gwwaveform_tpu_torch.kernel_ab --old-csrc DIR [--reps 20]
+        [--out kernel_ab.json]
+
+Both libraries are built with `nvcc -Xptxas -v`; each kernel's registers,
+shared memory and spills are printed. At each shape of the flagship paths
+(K1 context->grid and grid->targets at batch 32 and 256, with the paths'
+masks; K3 at M = 8,192 and 65,536) both builds are driven through the
+port's own wrappers (`_build.using` routes their launches to one build or
+the other), checked against the plain PyTorch version and for identical
+bits over two launches, then timed over `--reps` launches in the order old,
+new, new, old (`kernel_measure.time_ms`: each run of launches is captured
+in a CUDA graph and replayed, so the host's launch overhead is not
+counted). Bounds are `kernel_measure`'s, as in `chip_smoke.py`.
+Prints one JSON line (also written to `--out`) with each case's times, bound
+and errors, and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+
+import torch
+
+from . import _build
+from .kernel_measure import k1_bound, k1_inputs, k3_bound, k3_inputs, time_ms
+from .ops.kernels.mlp_chain import fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain
+from .ops.kernels.setconv import setconv_exprbf_fwd, setconv_exprbf_plain
+from .score import load_model
+
+RUN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "results",
+                       "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1")
+
+
+def ab_case(libs, row, call, ref, err_fields, bound, reps):
+    """Both builds on one case: each one's errors against the plain version
+    `ref` (err_fields(out, ref) -> dict), whether two launches give the same
+    bits, and device times in the order old, new, new, old."""
+    for tag, lib in libs.items():
+        with _build.using(lib):
+            out, again = call(), call()
+        row.update({f"{tag}_{k}": v for k, v in err_fields(out, ref).items()})
+        row[f"{tag}_repeat_identical"] = all(torch.equal(a, b) for a, b in zip(out, again))
+    t = {tag: [] for tag in libs}
+    for tag in ("old", "new", "new", "old"):
+        with _build.using(libs[tag]):
+            t[tag].append(time_ms(call, reps))
+    row["bound_ms"], row["bound_by"] = bound
+    return row, t
+
+
+def k1_errs(out, ref):
+    (s, d), (s_p, d_p) = out, ref
+    return dict(signal_err=(s - s_p).abs().max().item(),
+                density_rel_err=((d - d_p).abs() / (d_p.abs() + 1e-30)).max().item())
+
+
+def k3_errs(out, ref):
+    return dict(rel_err=max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                            for a, b in zip(out, ref) if b.numel()))
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, static shared memory bytes) per compiled kernel."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.append(dict(kernel=name, registers=int(m.group(1)),
+                            smem_bytes=int(m.group(2) or 0)))
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-csrc", required=True)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--run-dir", default=RUN_DIR)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    builds = {"new": _build.build(verbose=True), "old": _build.build(True, args.old_csrc)}
+    libs = {tag: _build.load(b.path) for tag, b in builds.items()}
+    ptxas = {tag: ptxas_report(b.log) for tag, b in builds.items()}
+    for tag, rows in ptxas.items():
+        for r in rows:
+            if "setconv" in r["kernel"] or "mlp_chain_bwd" in r["kernel"]:
+                print(f"ptxas {tag}: {r}")
+
+    model = load_model(args.run_dir, "cpu")
+    sig_ctx = model.cntxt_to_induced.rbf.sigma().item()
+    sig_trgt = model.induced_to_trgt.rbf.sigma().item()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    with torch.inference_mode():
+        for B in (32, 256):
+            for name, inp in ((f"ctx->grid B={B}", (B, 256, 384, 1, sig_ctx, gen, (), True, 192)),
+                              (f"grid->trgt B={B}",
+                               (B, 384, 256, 128, sig_trgt, gen, (), True, "all"))):
+                a = k1_inputs(*inp)
+                rows.append(ab_case(
+                    libs, dict(kernel="K1", shape=name, B=B, K=inp[1], Q=inp[2], C=inp[3]),
+                    lambda: setconv_exprbf_fwd(*a), setconv_exprbf_plain(*a), k1_errs,
+                    k1_bound(*a[:4]), args.reps))
+        dec = model.decoder.module
+        weights = tuple(t.detach().contiguous().cuda() for t in (
+            dec.to_hidden.weight, dec.to_hidden.bias,
+            torch.stack([dec.linear_0.weight, dec.linear_1.weight, dec.linear_2.weight]),
+            torch.stack([dec.linear_0.bias, dec.linear_1.bias, dec.linear_2.bias]),
+            dec.out.weight))
+        for M in (8192, 65536):
+            a = k3_inputs(M, 128, 128, 3, 2, True, gen, weights)
+            rows.append(ab_case(libs, dict(kernel="K3", shape=f"M={M}", M=M),
+                                lambda: fused_relu_mlp_bwd(*a), fused_relu_mlp_bwd_plain(*a),
+                                k3_errs, k3_bound(*a), args.reps))
+    cases = []
+    for row, t in rows:
+        for tag in ("old", "new"):
+            row[f"{tag}_ms"] = sum(t[tag]) / len(t[tag])
+            row[f"{tag}_ms_each"] = t[tag]
+            row[f"{tag}_bound_share"] = row["bound_ms"] / row[f"{tag}_ms"]
+        row["speedup"] = row["old_ms"] / row["new_ms"]
+        print(json.dumps(row))
+        cases.append(row)
+    res = dict(card=smi, ptxas=ptxas, cases=cases)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    print(json.dumps(dict(card=smi, cases=[{k: r[k] for k in ("kernel", "shape", "old_ms", "new_ms",
+                                                               "bound_ms", "speedup")}
+                                           for r in cases])))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,129 @@
+"""What `chip_smoke.py` and `kernel_ab` share to measure the port's kernels on
+the card: device time, the least time a kernel's work could take, and the
+inputs of the kernels' cases.
+
+`bound` is the larger of two times: the bytes that the function must move
+(each input read once, each output written once) over the card's memory
+rate, and the operations that it does over the card's float32 rate outside
+tensor cores (the H100 SXM's published dense peaks). `k1_bound`, `k2_bound`
+and `k3_bound` count both for one call of a kernel on its inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .utils.helpers import linspace
+
+__all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOP_PER_S", "time_ms", "bound", "k1_bound",
+           "k2_bound", "k3_bound", "k1_inputs", "k3_inputs"]
+
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one fn() call: reps calls captured in one CUDA
+    graph and replayed between CUDA events, so that the host's launch
+    overhead (tens of microseconds a wrapper call, more than some kernels
+    take) is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float):
+    """The least time (ms) for the work, and what sets it: "bytes" or
+    "operations"."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(keys, queries, values, mask):
+    """The SetConv forward: reads keys, mask, queries and values, writes the
+    signal and the density; 2C + 10 operations per (query, real key) pair
+    (the distance, the logit, its exponential, the weight sum and C
+    multiply-adds), counted on this mask."""
+    B, K = keys.shape
+    Q, C = queries.shape[1], values.shape[-1]
+    n_bytes = 4 * (2 * B * K + B * Q + B * K * C + B * Q * C + B * Q)
+    return bound(n_bytes, mask.sum().item() * Q * (2 * C + 10))
+
+
+def k2_bound(x, w0, b0, wh, bh, wout, bout):
+    """The MLP chain forward: reads x and the weights, writes the output;
+    two operations per multiply-add."""
+    M, C = x.shape
+    H, L1, O = w0.shape[0], wh.shape[0], wout.shape[0]
+    n_in = sum(t.numel() for t in (w0, b0, wh, bh, wout, bout) if t is not None)
+    return bound(4 * (M * C + M * O + n_in), 2 * M * (C * H + L1 * H * H + H * O))
+
+
+def k3_bound(x, g, w0, b0, wh, bh, wout):
+    """The MLP chain backward: reads x, g and the weights, writes dx and every
+    gradient; the forward recompute of the hidden chain, then the input and
+    the weight gradient of every layer, two operations per multiply-add."""
+    M, C = x.shape
+    H, L1, O = w0.shape[0], wh.shape[0], wout.shape[0]
+    n_w = H * C + L1 * H * H + O * H
+    n_params = n_w + H + L1 * H + O
+    n_bytes = 4 * (2 * M * C + M * O + (n_w + H * (b0 is not None) + L1 * H * (bh is not None))
+                   + n_params)
+    return bound(n_bytes, 2 * M * (C * H + L1 * H * H) + 4 * M * n_w)
+
+
+def k1_inputs(B, K, Q, C, sigma, gen, empty_rows=(), path=True, max_real=None):
+    """(keys, queries, values, mask, sigma) of one SetConv forward on the card:
+    keys and queries on the flagship paths' grids when `path` (256 context
+    points on [-1, 1], 384 grid points on [-1.5, 1.5]), else sorted random
+    keys and random queries; U{0..max_real} real keys per row (default K;
+    "all": every key, as the grid->targets SetConv's mask); the given rows
+    empty."""
+    dev = "cuda"
+    if path:
+        def grid(n):
+            half = 1.0 if n == 256 else 1.5
+            return linspace(-half, half, n, device=dev)[None].expand(B, n).contiguous()
+        keys, queries = grid(K), grid(Q)
+    else:
+        keys = torch.sort(torch.rand((B, K), generator=gen, device=dev) * 2 - 1, dim=-1).values
+        queries = torch.rand((B, Q), generator=gen, device=dev) * 3 - 1.5
+    values = torch.randn((B, K, C), generator=gen, device=dev)
+    if max_real == "all":
+        mask = torch.ones((B, K), device=dev)
+    else:
+        n_real = torch.randint(0, (max_real or K) + 1, (B, 1), generator=gen, device=dev)
+        scores = torch.rand((B, K), generator=gen, device=dev)
+        mask = (scores.argsort(dim=-1).argsort(dim=-1) < n_real).float()
+    mask[list(empty_rows)] = 0.0
+    return keys, queries, values, mask, torch.full((1,), sigma, device=dev)
+
+
+def k3_inputs(M, C, H, L1, O, biases, gen, weights=None):
+    """(x, g, w0, b0, wh, bh, wout) of one MLP chain backward on the card:
+    random x and g, and the given weights or random ones scaled by their fan
+    in (biases None unless `biases`)."""
+    dev = "cuda"
+    x = torch.randn((M, C), generator=gen, device=dev)
+    g = torch.randn((M, O), generator=gen, device=dev)
+    if weights is None:
+        def w(*shape):
+            return torch.randn(shape, generator=gen, device=dev) / shape[-1] ** 0.5
+        weights = (w(H, C), w(H) if biases else None, w(L1, H, H),
+                   w(L1, H) if biases else None, w(O, H))
+    return (x, g, *weights)

@@ -22,7 +22,7 @@ from ... import _build
 from ._checks import ptr, require_cuda_f32, require_no_grad, require_shape
 
 NEG = -1e30  # logit of a masked key, as in the Pallas kernel
-MAX_CHANNELS = 512  # (64 + 32) * C floats of shared memory per block
+MAX_CHANNELS = 512  # the wide kernel tiles channels by 128 a block; the contract stops here
 
 
 def setconv_exprbf_plain(keys, queries, values, mask, sigma, p: int = 2):

@@ -10,10 +10,14 @@ conditions on the normalised parameters, and records per waveform the NPML
 log-likelihood and the white-noise mismatch of the predictive mean.
 
     python -m npf_gwwaveform_tpu_torch.score --run-dir DIR [--n-test N]
-        [--thetas-from-run] [--device cuda]
+        [--thetas-from-run | --thetas-from RUN_DIR] [--device cuda]
 
 prints one JSON line and writes nothing. `--thetas-from-run` scores the
-parameters recorded in the run's `mismatch_theta.csv`, in order.
+parameters recorded in the run's `mismatch_theta.csv`, in order;
+`--thetas-from RUN_DIR` those recorded in another run's, so that a retrained
+model is scored on the waveforms a recorded run was scored on.
+`write_scores` writes a scoring into a run directory as `reproduce_gw.py`
+does: `eval.csv`, `mismatch_theta.csv` and the summary's metric fields.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import argparse
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,7 +43,7 @@ EVAL_BATCH = 256
 SAMPLE_RATE = 1024.0  # experiments/reproduce_gw.py builds its generator at 1024 Hz
 
 __all__ = ["load_model", "read_run_thetas", "run_generator", "make_eval_batch", "eval_splitter",
-           "score_batch", "score_run"]
+           "score_batch", "score_run", "summary_metrics", "write_scores"]
 
 
 def load_model(run_dir: str, device="cuda", use_kernels: bool = True) -> ConvCNP:
@@ -73,15 +78,21 @@ def make_eval_batch(theta: torch.Tensor, gen: GWWaveformGenerator, space: GWPara
 
 
 def score_batch(model, splitter, generator, theta, gen, space, n_points: int = 256):
-    """Per-waveform (log-likelihood [B], mismatch [B], NPFOutput) of one batch."""
+    """Per-waveform (log-likelihood [B], mismatch [B], per-draw mismatch [B],
+    NPFOutput) of one batch. The mismatch is the predictive mixture mean's;
+    the per-draw mismatch averages each z draw's mismatch, as
+    `reproduce_gw.py`'s `mm_zdraw` (equal for one draw)."""
     x, y, cond = make_eval_batch(theta, gen, space, n_points)
     batch = splitter(generator, x, y, condition=cond)
     out = model(batch["X_cntxt"], batch["Y_cntxt"], batch["X_trgt"],
                  mask_cntxt=batch["mask_cntxt"], mask_trgt=batch["mask_trgt"],
                  condition=batch["condition"])
     ll = -CNPFLoss(reduction=None)(out, batch["Y_trgt"], batch["mask_trgt"], train=False)
-    pred = out.p_yCc.loc.mean(dim=0)
-    return ll, mismatch(pred[..., 0], y[..., 0]), out
+    loc = out.p_yCc.loc[..., 0]
+    mm = mismatch(loc.mean(dim=0), y[..., 0])
+    # one draw (every CNPF model): exactly the mixture's, as reproduce_gw.py records it
+    mm_zdraw = mm if loc.shape[0] == 1 else mismatch(loc, y[None, ..., 0]).mean(dim=0)
+    return ll, mm, mm_zdraw, out
 
 
 def eval_splitter(n_context: int) -> CntxtTrgtSplitter:
@@ -92,10 +103,31 @@ def eval_splitter(n_context: int) -> CntxtTrgtSplitter:
     )
 
 
-def score_run(run_dir: str, n_test: int = 2048, thetas_from_run: bool = False,
+def summary_metrics(ll: np.ndarray, mm: np.ndarray, mm_zdraw: np.ndarray) -> dict:
+    """The metric fields `reproduce_gw.py` records in a run's summary, from
+    per-waveform log-likelihoods and mismatches."""
+    return {
+        "test_nll_per_wf": float(-ll.mean()),
+        "test_ll_per_wf": float(ll.mean()),
+        "mismatch_median": float(np.median(mm)),
+        "mismatch_mean": float(mm.mean()),
+        "mismatch_p90": float(np.percentile(mm, 90)),
+        "mismatch_p99": float(np.percentile(mm, 99)),
+        "frac_below_0.03": float((mm < 0.03).mean()),
+        "frac_below_0.1": float((mm < 0.1).mean()),
+        "mismatch_zdraw_median": float(np.median(mm_zdraw)),
+        "mismatch_zdraw_p90": float(np.percentile(mm_zdraw, 90)),
+        "zdraw_frac_below_0.03": float((mm_zdraw < 0.03).mean()),
+    }
+
+
+def score_run(run_dir: str, n_test: int = 2048, thetas_from: Optional[str] = None,
               device="cuda", seed: int = 0, use_kernels: bool = True) -> dict:
-    """Score `n_test` waveforms of the run; returns the summary metrics plus
-    the per-waveform arrays under `ll` and `mismatch`."""
+    """Score `n_test` waveforms of the run, on thetas drawn from `seed`, or
+    on those recorded in the `mismatch_theta.csv` of the run directory
+    `thetas_from` (`run_dir` itself included). Returns `summary_metrics`,
+    the short names `mean_ll` and `median_mismatch`, and the per-waveform
+    arrays `ll`, `mismatch`, `mismatch_zdraw` and `theta` [n, 4]."""
     device = torch.device(device)
     with open(os.path.join(run_dir, "summary.json")) as f:
         summary = json.load(f)
@@ -104,46 +136,73 @@ def score_run(run_dir: str, n_test: int = 2048, thetas_from_run: bool = False,
     n_points = summary.get("n_points", 256)
     splitter = eval_splitter(summary["n_context"])
     generator = torch.Generator(device=device).manual_seed(seed)
-    if thetas_from_run:
-        thetas = torch.from_numpy(read_run_thetas(run_dir)[:n_test]).to(device)
+    if thetas_from is not None:
+        thetas = torch.from_numpy(read_run_thetas(thetas_from)[:n_test]).to(device)
     else:
         thetas = space.sample(n_test, generator)
-    lls, mms = [], []
+    lls, mms, mzs = [], [], []
     t0 = time.perf_counter()
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         for i in range(0, thetas.shape[0], EVAL_BATCH):
-            ll, mm, _ = score_batch(model, splitter, generator, thetas[i:i + EVAL_BATCH], gen,
-                                    space, n_points)
+            ll, mm, mz, _ = score_batch(model, splitter, generator, thetas[i:i + EVAL_BATCH], gen,
+                                        space, n_points)
             lls.append(ll)
             mms.append(mm)
-        ll = torch.cat(lls).cpu().numpy()
-        mm = torch.cat(mms).cpu().numpy()
+            mzs.append(mz)
+        ll, mm, mz = (torch.cat(t).cpu().numpy() for t in (lls, mms, mzs))
     seconds = time.perf_counter() - t0
+    metrics = summary_metrics(ll, mm, mz)
     return {
         "run_dir": run_dir,
+        "thetas_from": thetas_from,
         "device": str(device),
         "n": int(ll.shape[0]),
-        "mean_ll": float(ll.mean()),
-        "median_mismatch": float(np.median(mm)),
-        "mismatch_p90": float(np.percentile(mm, 90)),
-        "frac_below_0.1": float((mm < 0.1).mean()),
+        "mean_ll": metrics["test_ll_per_wf"],
+        "median_mismatch": metrics["mismatch_median"],
+        **metrics,
         "seconds": seconds,
         "ll": ll,
         "mismatch": mm,
+        "mismatch_zdraw": mz,
+        "theta": thetas.cpu().numpy(),
     }
 
 
-def main(argv=None) -> None:
+def write_scores(run_dir: str, scores: dict) -> dict:
+    """Write a `score_run` result into the run directory as `reproduce_gw.py`
+    does: `eval.csv` (one log-likelihood per waveform), `mismatch_theta.csv`
+    (each waveform's mismatch and raw theta) and the metric fields merged
+    into `summary.json`. Returns the updated summary."""
+    np.savetxt(os.path.join(run_dir, "eval.csv"), scores["ll"], delimiter=",")
+    np.savetxt(os.path.join(run_dir, "mismatch_theta.csv"),
+               np.concatenate([scores["mismatch"][:, None], scores["theta"]], axis=1),
+               delimiter=",", header="mismatch,m1,m2,chi1,chi2")
+    path = os.path.join(run_dir, "summary.json")
+    with open(path) as f:
+        summary = json.load(f)
+    summary.update(summary_metrics(scores["ll"], scores["mismatch"], scores["mismatch_zdraw"]))
+    with open(path, "w") as f:
+        json.dump(summary, f, indent=2)
+    return summary
+
+
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--run-dir", required=True)
     ap.add_argument("--n-test", type=int, default=2048)
-    ap.add_argument("--thetas-from-run", action="store_true")
+    thetas = ap.add_mutually_exclusive_group()
+    thetas.add_argument("--thetas-from-run", action="store_true")
+    thetas.add_argument("--thetas-from", default=None, metavar="RUN_DIR")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
-    res = score_run(args.run_dir, args.n_test, args.thetas_from_run, args.device, args.seed)
-    print(json.dumps({k: v for k, v in res.items() if k not in ("ll", "mismatch")}))
+    res = score_run(args.run_dir, args.n_test,
+                    args.run_dir if args.thetas_from_run else args.thetas_from, args.device,
+                    args.seed)
+    res = {k: v for k, v in res.items() if not isinstance(v, np.ndarray)}
+    print(json.dumps(res))
+    return res
 
 
 if __name__ == "__main__":

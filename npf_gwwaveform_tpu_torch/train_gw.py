@@ -5,19 +5,24 @@ flat CNN).
 
     python -m npf_gwwaveform_tpu_torch.train_gw [--steps N] [--batch 32]
         [--lr 1e-3] [--decay-lr 10] [--seed 0] [--device cuda]
-        [--out runs_torch/] [--run 0] [--n-test 2048]
+        [--out runs_torch/] [--run 0] [--n-test 2048] [--thetas-from RUN_DIR]
 
 Each step draws `--batch` waveforms on the device (the scorer's generator
 and stride: 1024 Hz over 1 s, every 4th sample), splits them with one context
 count U{0..192} for the whole batch (the JAX training splitter), and takes one
 Adam step on the CNPF loss, the learning rate decaying x`--decay-lr` over
 `steps // 1562` epochs of 1562 steps. The run directory
-`<out>/GW_time_cond_film_ctx192_d128/ConvCNP/run_<run>` gets `history.json`
-(step, seconds since the first step, mean train loss of the last 50 steps),
-`params.msgpack` and `extra_vars.msgpack` in flax's layout, and
-`summary.json`; then `score.score_run` scores `--n-test` waveforms of it and
-the scores join the summary, which is printed as one JSON line. Float32
-throughout: TF32 is off for matmuls and cuDNN convolutions.
+`<out>/GW_time_cond_film_ctx192_d128/ConvCNP/run_<run>` gets the files
+`reproduce_gw.py` writes: `history.json` (step, seconds since the first
+step, mean train loss of the last 50 steps), `params.msgpack` and
+`extra_vars.msgpack` in flax's layout, `model_summary.txt` and
+`summary.json`; then `score.score_run` scores `--n-test` waveforms of it
+(drawn from `--seed`, or those recorded in `--thetas-from`'s
+`mismatch_theta.csv`, so that a run's recorded scores are on the waveforms a
+run it is compared with was scored on) and `score.write_scores` adds `eval.csv`,
+`mismatch_theta.csv` and the scores to the summary, which is printed as one
+JSON line. Float32 throughout: TF32 is off for matmuls and cuDNN
+convolutions.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import argparse
 import json
 import os
 import time
+from typing import Optional
 
 import torch
 
@@ -33,8 +39,9 @@ from .configs import STEPS_PER_EPOCH, gw_model_from_summary, gw_train_summary, r
 from .data.datasplit import CntxtTrgtSplitter, GetRandomIndcs, get_all_indcs
 from .data.gw import GWParameterSpace
 from .losses import CNPFLoss
-from .score import make_eval_batch, run_generator, score_run
+from .score import make_eval_batch, run_generator, score_run, write_scores
 from .training.checkpoint import save_run_params
+from .training.state import count_parameters
 from .training.optim import make_optimizer
 from .training.trainer import Trainer
 from .utils.init import init_module
@@ -94,9 +101,12 @@ def train(trainer: Trainer, summary: dict, steps: int, batch: int,
 
 
 def write_run(run_dir: str, model: torch.nn.Module, summary: dict, history: list) -> None:
-    """The run directory in the JAX package's layout: params.msgpack,
-    extra_vars.msgpack, history.json and summary.json."""
+    """The run directory in the JAX package's layout before scoring:
+    params.msgpack, extra_vars.msgpack, model_summary.txt (the module tree
+    and the parameter count), history.json and summary.json."""
     save_run_params(run_dir, model)
+    with open(os.path.join(run_dir, "model_summary.txt"), "w") as f:
+        f.write(f"{model!r}\nn_params: {count_parameters(model)}\n")
     with open(os.path.join(run_dir, "history.json"), "w") as f:
         json.dump(history, f)
     with open(os.path.join(run_dir, "summary.json"), "w") as f:
@@ -105,9 +115,10 @@ def write_run(run_dir: str, model: torch.nn.Module, summary: dict, history: list
 
 def run(steps: int, batch: int = 32, lr: float = 1e-3, decay_lr: float = 10.0, seed: int = 0,
         device="cuda", out: str = "runs_torch/", run_index: int = 0,
-        n_test: int = 2048) -> tuple:
+        n_test: int = 2048, thetas_from: Optional[str] = None) -> tuple:
     """Train the flagship configuration, write its run directory and score
-    it. -> (run_dir, summary with the scores)."""
+    it (on `thetas_from`'s recorded thetas when given). -> (run_dir, summary
+    with the scores)."""
     summary = gw_train_summary()
     trainer = build_trainer(summary, steps, device, lr, decay_lr, seed)
     history, _, seconds, _ = train(trainer, summary, steps, batch)
@@ -119,14 +130,8 @@ def run(steps: int, batch: int = 32, lr: float = 1e-3, decay_lr: float = 10.0, s
 
     run_dir = os.path.join(out, run_tag(summary), summary["model"], f"run_{run_index}")
     write_run(run_dir, trainer.model, summary, history)
-    scores = score_run(run_dir, n_test, device=device, seed=seed)
-    summary.update(test_ll_per_wf=scores["mean_ll"], test_nll_per_wf=-scores["mean_ll"],
-                   mismatch_median=scores["median_mismatch"],
-                   mismatch_p90=scores["mismatch_p90"],
-                   **{"frac_below_0.1": scores["frac_below_0.1"]})
-    with open(os.path.join(run_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-    return run_dir, summary
+    scores = score_run(run_dir, n_test, device=device, seed=seed, thetas_from=thetas_from)
+    return run_dir, write_scores(run_dir, scores)
 
 
 def main(argv=None) -> dict:
@@ -140,11 +145,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default="runs_torch/")
     ap.add_argument("--run", type=int, default=0)
     ap.add_argument("--n-test", type=int, default=2048)
+    ap.add_argument("--thetas-from", default=None, metavar="RUN_DIR")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     run_dir, summary = run(args.steps, args.batch, args.lr, args.decay_lr, args.seed, args.device,
-                           args.out, args.run, args.n_test)
+                           args.out, args.run, args.n_test, args.thetas_from)
     print(json.dumps({"run_dir": run_dir, **summary}))
     return summary
 

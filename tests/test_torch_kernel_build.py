@@ -1,0 +1,114 @@
+"""What surrounds the hand-written kernels and can be checked without a card:
+the build's naming (every source and header edit rebuilds), the scorer's
+summary metrics, the kernels' bounds (`kernel_measure`) and the kernel A/B
+tool's ptxas parsing. The
+kernels themselves are held against their plain versions on the H100 by
+`chip_smoke.py`; their tile, grid and scratch planning is C code
+(`make_plan` in csrc/mlp_chain_bwd.cu, the launcher of csrc/setconv_fwd.cu)
+and runs only there."""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from npf_gwwaveform_tpu_torch import _build
+from npf_gwwaveform_tpu_torch.kernel_ab import ptxas_report
+from npf_gwwaveform_tpu_torch.kernel_measure import bound, k1_bound, k3_bound
+from npf_gwwaveform_tpu_torch.models.convnp import ConvCNP
+from npf_gwwaveform_tpu_torch.score import eval_splitter, score_batch, summary_metrics
+from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace, GWWaveformGenerator
+
+torch.set_num_threads(1)
+
+
+def test_sources_and_header_are_in_the_build():
+    names = {os.path.basename(p) for p in _build.sources()}
+    assert {"setconv_fwd.cu", "mlp_chain_fwd.cu", "mlp_chain_bwd.cu"} <= names
+    assert os.path.exists(os.path.join(_build.CSRC_DIR, "tile_fma.cuh"))
+
+
+@pytest.mark.parametrize("edited", ["tile_fma.cuh", "setconv_fwd.cu"])
+def test_library_name_follows_every_source_and_header(tmp_path, edited):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    before = _build.library_path(str(csrc))
+    assert before == _build.library_path(_build.CSRC_DIR)
+    with open(csrc / edited, "a") as f:
+        f.write("\n// edited\n")
+    after = _build.library_path(str(csrc))
+    assert after != before and os.path.dirname(after) == _build.BUILD_DIR
+
+
+def test_summary_metrics_are_reproduce_gws():
+    rng = np.random.default_rng(0)
+    ll = rng.normal(890, 20, 300).astype(np.float32)
+    mm = rng.exponential(0.02, 300).astype(np.float32)
+    mz = mm + rng.uniform(0, 1e-3, 300).astype(np.float32)
+    got = summary_metrics(ll, mm, mz)
+    assert got["test_ll_per_wf"] == float(ll.mean()) == -got["test_nll_per_wf"]
+    assert got["mismatch_median"] == float(np.median(mm))
+    assert got["mismatch_mean"] == float(mm.mean())
+    assert got["mismatch_p90"] == float(np.percentile(mm, 90))
+    assert got["mismatch_p99"] == float(np.percentile(mm, 99))
+    assert got["frac_below_0.03"] == float((mm < 0.03).mean())
+    assert got["frac_below_0.1"] == float((mm < 0.1).mean())
+    assert got["mismatch_zdraw_median"] == float(np.median(mz))
+    assert got["mismatch_zdraw_p90"] == float(np.percentile(mz, 90))
+    assert got["zdraw_frac_below_0.03"] == float((mz < 0.03).mean())
+
+
+def test_score_batch_per_draw_mismatch_equals_the_mixtures_for_one_draw():
+    torch.manual_seed(0)
+    model = ConvCNP(r_dim=8, density_induced=8, cnn_n_blocks=1, cnn_kernel_size=3,
+                    cond_dim=4).eval()
+    space = GWParameterSpace()
+    gen = GWWaveformGenerator(duration=1.0, sample_rate=1024.0)
+    g = torch.Generator().manual_seed(3)
+    theta = space.sample(5, g)
+    with torch.no_grad():
+        ll, mm, mz, out = score_batch(model, eval_splitter(64), g, theta, gen, space)
+    assert out.p_yCc.loc.shape[0] == 1
+    assert ll.shape == mm.shape == mz.shape == (5,)
+    torch.testing.assert_close(mz, mm, rtol=0, atol=0)
+
+
+def test_bound_is_the_larger_of_bytes_and_operations():
+    t, by = bound(3.35e9, 1.0)  # 3.35 GB at 3.35 TB/s: 1 ms
+    assert by == "bytes" and t == pytest.approx(1.0)
+    t, by = bound(1.0, 67e9)  # 67 GFLOP at 67 TFLOP/s: 1 ms
+    assert by == "operations" and t == pytest.approx(1.0)
+
+
+def test_k3_bound_at_the_training_shape():
+    """The forward recompute and the input and weight gradients of the
+    decoder chain at M = 8,192: 3.23 GFLOP, ~0.0482 ms at 67 TFLOP/s."""
+    M, C, H, L1, O = 8192, 128, 128, 3, 2
+    args = (torch.zeros(M, C), torch.zeros(M, O), torch.zeros(H, C), torch.zeros(H),
+            torch.zeros(L1, H, H), torch.zeros(L1, H), torch.zeros(O, H))
+    t, by = k3_bound(*args)
+    assert by == "operations" and t == pytest.approx(
+        (2 * M * (C * H + L1 * H * H) + 4 * M * (H * C + L1 * H * H + O * H)) / 67e9)
+
+
+def test_k1_bound_counts_only_real_keys():
+    B, K, Q, C = 2, 384, 256, 128
+    keys, queries, values = torch.zeros(B, K), torch.zeros(B, Q), torch.zeros(B, K, C)
+    mask = torch.zeros(B, K)
+    mask[0] = 1.0
+    half, _ = k1_bound(keys, queries, values, mask)
+    mask[1] = 1.0
+    full, by = k1_bound(keys, queries, values, mask)
+    assert by == "operations" and full == pytest.approx(2 * half)
+    assert full == pytest.approx(B * K * Q * (2 * C + 10) / 67e9)
+
+
+def test_ptxas_report_reads_registers_and_static_shared_memory():
+    log = ("ptxas info    : Compiling entry function '_Zk1' for 'sm_90a'\n"
+           "ptxas info    : Used 168 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_Zk2' for 'sm_90a'\n"
+           "ptxas info    : Used 127 registers, used 1 barriers, 25600 bytes smem\n")
+    assert ptxas_report(log) == [dict(kernel="_Zk1", registers=168, smem_bytes=0),
+                                 dict(kernel="_Zk2", registers=127, smem_bytes=25600)]

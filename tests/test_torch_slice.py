@@ -138,7 +138,7 @@ def test_flagship_run_matches_jax_at_full_width():
 def test_score_run_on_cpu():
     """The scorer end to end on 8 recorded thetas: finite per-waveform
     results and the run's recorded quality on the easy ones."""
-    res = score_run(RUN_DIR, n_test=8, thetas_from_run=True, device="cpu")
+    res = score_run(RUN_DIR, n_test=8, thetas_from=RUN_DIR, device="cpu")
     assert res["n"] == 8 and np.isfinite(res["ll"]).all() and np.isfinite(res["mismatch"]).all()
     assert res["ll"].shape == res["mismatch"].shape == (8,)
     assert 0.0 <= res["median_mismatch"] < 1.0
