@@ -6,15 +6,20 @@ NVIDIA H100.
 
 Phases, each announced with the seconds elapsed:
   1. device: the card's name and power limit, torch and nvcc versions;
-  2. build: both CUDA kernels with one nvcc call (ptxas resource report);
+  2. build: the three kernels with one nvcc call (ptxas resource report);
   3. K1 (SetConv forward) against its plain version at the two path shapes of
      the scoring batch and of the train step, with the paths' own masks
      (U{0..192} of 256 context points real, every grid point real), and at
      three other cases: random masks at the grid->targets shape, K = 5000
      keys, and the long-waveform width C = 512 (K = 2048, Q = 1536); two
      launches must give the same bits;
-  4. K2 (fused MLP chain forward) against its plain version at the decoder
-     shape and two other cases;
+  4. K2 (fused MLP chain forward) against its plain version at the scoring
+     and training decoder shapes, and at the edges of its design: L1=0, a
+     ragged residual chain with C != H and no biases, C > H, widths over 128
+     (H = 256, and 320 with the residual), O on each side of the small-O
+     output (8 and 9), 128-row tiles with a two-pass output and with two
+     activation buffers, and widths served by the wide kernel; two launches
+     must give the same bits;
   5. K3 (fused MLP chain backward) against its plain version at the training
      and scoring shapes, with L1=0 and no biases, at a ragged row count, and
      at widths over 128 (H = 256 and 320, L1 = 2, with and without the
@@ -51,7 +56,7 @@ from npf_gwwaveform_tpu_torch import train_gw
 from npf_gwwaveform_tpu_torch.configs import gw_train_summary
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.kernel_measure import (
-    k1_bound, k1_inputs, k2_bound, k3_bound, k3_inputs, time_ms,
+    K2_CASES, k1_bound, k1_inputs, k2_bound, k2_inputs, k3_bound, k3_inputs, time_ms,
 )
 from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
     fused_relu_mlp, fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain, fused_relu_mlp_plain,
@@ -143,17 +148,6 @@ def check_k1(cases):
     return rows
 
 
-def k2_case(name, M, C, H, L1, O, is_res, biases, gen, weights=None):
-    dev = "cuda"
-    x = torch.randn((M, C), generator=gen, device=dev)
-    if weights is None:
-        def w(*shape):
-            return torch.randn(shape, generator=gen, device=dev) / shape[-1] ** 0.5
-        weights = (w(H, C), w(H) if biases else None, w(L1, H, H),
-                   w(L1, H) if biases else None, w(O, H), w(O) if biases else None)
-    return name, (x, *weights), is_res
-
-
 def check_k2(cases):
     rows = []
     for name, args, is_res in cases:
@@ -161,15 +155,19 @@ def check_k2(cases):
         M, C = x.shape
         H, L1, O = w0.shape[0], wh.shape[0], wout.shape[0]
         o_k = fused_relu_mlp(*args, is_res=is_res)
+        o_k2 = fused_relu_mlp(*args, is_res=is_res)
         o_p = fused_relu_mlp_plain(*args, is_res=is_res)
         torch.cuda.synchronize()
+        same = torch.equal(o_k, o_k2)
         err = (o_k - o_p).abs().max().item()
         scale = o_p.abs().max().item()
         finite = bool(torch.isfinite(o_k).all())
         print(f"K2 {name}: M={M} C={C} H={H} L1={L1} O={O} res={is_res} "
-              f"max abs err {err:.3e} (output max {scale:.3e})")
+              f"max abs err {err:.3e} (output max {scale:.3e}); repeat bit-identical {same}")
         if not (finite and err <= K2_RTOL * scale):
             raise AssertionError(f"K2 {name} disagrees with its plain version")
+        if not same:
+            raise AssertionError(f"K2 {name}: two launches on the same inputs differ")
         ms = time_ms(lambda: fused_relu_mlp(*args, is_res=is_res))
         plain_ms = time_ms(lambda: fused_relu_mlp_plain(*args, is_res=is_res))
         bms, by = k2_bound(*args)
@@ -384,11 +382,11 @@ def main() -> int:
     with torch.inference_mode():
         dec_w = tuple(t.detach().contiguous() for t in dec_w)
         k2_rows = check_k2([
-            k2_case("decoder", 65536, 128, 128, 3, 2, False, True, gen, weights=dec_w),
-            k2_case("decoder train", TRAIN_BATCH * 256, 128, 128, 3, 2, False, True, gen,
-                    weights=dec_w),
-            k2_case("residual", 4099, 37, 64, 2, 5, True, False, gen),
-            k2_case("no-hidden", 1000, 128, 128, 0, 3, False, True, gen),
+            ("decoder", k2_inputs(65536, 128, 128, 3, 2, True, gen, dec_w), False),
+            ("decoder train", k2_inputs(TRAIN_BATCH * 256, 128, 128, 3, 2, True, gen, dec_w),
+             False),
+            *((name, k2_inputs(M, C, H, L1, O, biases, gen), is_res)
+              for name, M, C, H, L1, O, is_res, biases in K2_CASES),
         ])
 
         phase("K3 mlp_chain_bwd vs plain")

@@ -40,13 +40,16 @@ _SIGNATURES = {
     "npf_setconv_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # x, M, C, w0, b0, wh, bh, L1, H, wout, bout, O, is_res, out, stream
     "npf_mlp_chain_fwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P],
+    # M, C, H, O -> bytes of shared memory a block takes (-1: widths too large)
+    "npf_mlp_chain_fwd_smem": [_I, _I, _I, _I],
     # M, C, H, L1, O -> floats of scratch (-1: widths too large)
     "npf_mlp_chain_bwd_scratch": [_I, _I, _I, _I, _I],
     # x, g, M, C, w0, b0, wh, bh, L1, H, wout, O, is_res, dx, grads, scratch, stream
     "npf_mlp_chain_bwd": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
 }
 # return types other than int
-_RESTYPES = {"npf_mlp_chain_bwd_scratch": ctypes.c_longlong}
+_RESTYPES = {"npf_mlp_chain_bwd_scratch": ctypes.c_longlong,
+             "npf_mlp_chain_fwd_smem": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
@@ -107,10 +110,13 @@ def build(verbose: bool = False, csrc_dir: str = CSRC_DIR) -> BuildResult:
 
 
 def load(path: str) -> ctypes.CDLL:
-    """A built kernel library with its entry points' signatures set."""
+    """A built kernel library with its entry points' signatures set. An
+    entry point the library lacks (an earlier build's) is left unset."""
     handle = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(handle, name)
+        fn = getattr(handle, name, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return handle

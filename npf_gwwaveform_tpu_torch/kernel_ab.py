@@ -1,7 +1,8 @@
-"""Two builds of the SetConv forward (K1) and MLP-chain backward (K3) kernels,
-timed in turns in one process on one card: the sources in the package's
-`csrc/` against those of another directory with the same C entry points
-(an earlier commit's `csrc/`, unpacked with `git show` or `git archive`).
+"""Two builds of the SetConv forward (K1), MLP-chain forward (K2) and
+MLP-chain backward (K3) kernels, timed in turns in one process on one card:
+the sources in the package's `csrc/` against those of another directory with
+the same C entry points (an earlier commit's `csrc/`, unpacked with `git show`
+or `git archive`).
 
     python -m npf_gwwaveform_tpu_torch.kernel_ab --old-csrc DIR [--reps 20]
         [--out kernel_ab.json]
@@ -9,15 +10,17 @@ timed in turns in one process on one card: the sources in the package's
 Both libraries are built with `nvcc -Xptxas -v`; each kernel's registers,
 shared memory and spills are printed. At each shape of the flagship paths
 (K1 context->grid and grid->targets at batch 32 and 256, with the paths'
-masks; K3 at M = 8,192 and 65,536) both builds are driven through the
-port's own wrappers (`_build.using` routes their launches to one build or
-the other), checked against the plain PyTorch version and for identical
-bits over two launches, then timed over `--reps` launches in the order old,
-new, new, old (`kernel_measure.time_ms`: each run of launches is captured
-in a CUDA graph and replayed, so the host's launch overhead is not
-counted). Bounds are `kernel_measure`'s, as in `chip_smoke.py`.
-Prints one JSON line (also written to `--out`) with each case's times, bound
-and errors, and the card's name and power limit.
+masks; K2 and K3 at M = 8,192 and 65,536 with the flagship run's decoder
+weights) and at K2's other cases in `chip_smoke.py` (`K2_CASES`), both
+builds are driven through the port's own wrappers (`_build.using` routes
+their launches to one build or the other), checked against the plain
+PyTorch version, for identical bits over two launches and for identical
+bits between the two builds, then timed over `--reps` launches in the order
+old, new, new, old (`kernel_measure.time_ms`: each run of launches is
+captured in a CUDA graph and replayed, so the host's launch overhead is not
+counted). Bounds are `kernel_measure`'s, as in `chip_smoke.py`. Prints one
+JSON line (also written to `--out`) with each case's times, bound and
+errors, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -31,8 +34,12 @@ import subprocess
 import torch
 
 from . import _build
-from .kernel_measure import k1_bound, k1_inputs, k3_bound, k3_inputs, time_ms
-from .ops.kernels.mlp_chain import fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain
+from .kernel_measure import (
+    K2_CASES, k1_bound, k1_inputs, k2_bound, k2_inputs, k3_bound, k3_inputs, time_ms,
+)
+from .ops.kernels.mlp_chain import (
+    fused_relu_mlp, fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain, fused_relu_mlp_plain,
+)
 from .ops.kernels.setconv import setconv_exprbf_fwd, setconv_exprbf_plain
 from .score import load_model
 
@@ -43,12 +50,16 @@ RUN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 def ab_case(libs, row, call, ref, err_fields, bound, reps):
     """Both builds on one case: each one's errors against the plain version
     `ref` (err_fields(out, ref) -> dict), whether two launches give the same
-    bits, and device times in the order old, new, new, old."""
+    bits, whether the two builds do, and device times in the order old, new,
+    new, old. `call` and `ref` are tuples of tensors."""
+    outs = {}
     for tag, lib in libs.items():
         with _build.using(lib):
             out, again = call(), call()
+        outs[tag] = out
         row.update({f"{tag}_{k}": v for k, v in err_fields(out, ref).items()})
         row[f"{tag}_repeat_identical"] = all(torch.equal(a, b) for a, b in zip(out, again))
+    row["builds_identical"] = all(torch.equal(a, b) for a, b in zip(outs["old"], outs["new"]))
     t = {tag: [] for tag in libs}
     for tag in ("old", "new", "new", "old"):
         with _build.using(libs[tag]):
@@ -61,6 +72,12 @@ def k1_errs(out, ref):
     (s, d), (s_p, d_p) = out, ref
     return dict(signal_err=(s - s_p).abs().max().item(),
                 density_rel_err=((d - d_p).abs() / (d_p.abs() + 1e-30)).max().item())
+
+
+def k2_errs(out, ref):
+    (o,), (p,) = out, ref
+    err = (o - p).abs().max().item()
+    return dict(max_abs_err=err, rel_err=err / max(p.abs().max().item(), 1e-30))
 
 
 def k3_errs(out, ref):
@@ -97,10 +114,13 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     builds = {"new": _build.build(verbose=True), "old": _build.build(True, args.old_csrc)}
     libs = {tag: _build.load(b.path) for tag, b in builds.items()}
+    if not hasattr(libs["old"], "npf_mlp_chain_fwd_smem"):
+        # builds before this query checked K2's widths in the launcher alone
+        libs["old"].npf_mlp_chain_fwd_smem = lambda M, C, H, O: 0
     ptxas = {tag: ptxas_report(b.log) for tag, b in builds.items()}
     for tag, rows in ptxas.items():
         for r in rows:
-            if "setconv" in r["kernel"] or "mlp_chain_bwd" in r["kernel"]:
+            if any(k in r["kernel"] for k in ("setconv", "mlp_chain_fwd", "mlp_chain_bwd")):
                 print(f"ptxas {tag}: {r}")
 
     model = load_model(args.run_dir, "cpu")
@@ -123,12 +143,22 @@ def main(argv=None) -> dict:
             dec.to_hidden.weight, dec.to_hidden.bias,
             torch.stack([dec.linear_0.weight, dec.linear_1.weight, dec.linear_2.weight]),
             torch.stack([dec.linear_0.bias, dec.linear_1.bias, dec.linear_2.bias]),
-            dec.out.weight))
+            dec.out.weight, dec.out.bias))
         for M in (8192, 65536):
-            a = k3_inputs(M, 128, 128, 3, 2, True, gen, weights)
+            a2 = k2_inputs(M, 128, 128, 3, 2, True, gen, weights)
+            rows.append(ab_case(libs, dict(kernel="K2", shape=f"M={M}", M=M),
+                                lambda: (fused_relu_mlp(*a2),), (fused_relu_mlp_plain(*a2),),
+                                k2_errs, k2_bound(*a2), args.reps))
+            a = k3_inputs(M, 128, 128, 3, 2, True, gen, weights[:5])
             rows.append(ab_case(libs, dict(kernel="K3", shape=f"M={M}", M=M),
                                 lambda: fused_relu_mlp_bwd(*a), fused_relu_mlp_bwd_plain(*a),
                                 k3_errs, k3_bound(*a), args.reps))
+        for name, M, C, H, L1, O, is_res, biases in K2_CASES:
+            a2 = k2_inputs(M, C, H, L1, O, biases, gen)
+            rows.append(ab_case(
+                libs, dict(kernel="K2", shape=name, M=M, C=C, H=H, L1=L1, O=O, is_res=is_res),
+                lambda: (fused_relu_mlp(*a2, is_res=is_res),),
+                (fused_relu_mlp_plain(*a2, is_res=is_res),), k2_errs, k2_bound(*a2), args.reps))
     cases = []
     for row, t in rows:
         for tag in ("old", "new"):

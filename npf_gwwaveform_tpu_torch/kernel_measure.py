@@ -16,7 +16,7 @@ import torch
 from .utils.helpers import linspace
 
 __all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOP_PER_S", "time_ms", "bound", "k1_bound",
-           "k2_bound", "k3_bound", "k1_inputs", "k3_inputs"]
+           "k2_bound", "k3_bound", "k1_inputs", "k2_inputs", "k3_inputs", "K2_CASES"]
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -114,16 +114,48 @@ def k1_inputs(B, K, Q, C, sigma, gen, empty_rows=(), path=True, max_real=None):
     return keys, queries, values, mask, torch.full((1,), sigma, device=dev)
 
 
+def _random_weights(C, H, L1, O, biases, gen, with_bout=True):
+    """(w0, b0, wh, bh, wout[, bout]) scaled by their fan in, on the card;
+    biases None unless `biases`."""
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") / shape[-1] ** 0.5
+    ws = (w(H, C), w(H) if biases else None, w(L1, H, H), w(L1, H) if biases else None, w(O, H))
+    return (*ws, w(O) if biases else None) if with_bout else ws
+
+
+# K2's cases off the flagship paths, with random weights: (name, M, C, H,
+# L1, O, is_res, biases). Past the first two, the edges of the kernel's
+# design (csrc/mlp_chain_fwd.cu): each block kind, one and two activation
+# buffers, O on each side of the small-O output, and the wide kernel.
+K2_CASES = (
+    ("residual", 4099, 37, 64, 2, 5, True, False),
+    ("no-hidden", 1000, 128, 128, 0, 3, False, True),
+    ("C > H no-bias", 1500, 200, 96, 1, 2, False, False),
+    ("wide", 3001, 200, 256, 2, 3, False, True),
+    ("wide residual", 3001, 200, 320, 2, 3, True, True),
+    ("small-O edge", 2049, 128, 128, 1, 8, False, True),
+    ("tiled-O edge", 2049, 128, 128, 1, 9, True, True),
+    ("128-row tiles, two-pass O", 20001, 64, 96, 2, 130, True, True),
+    ("128-row tiles, two buffers", 20001, 96, 144, 2, 3, True, True),
+    ("wide kernel, 32 rows", 300, 800, 700, 1, 2, False, True),
+    ("wide kernel, 16 rows", 300, 1600, 1600, 1, 2, True, True),
+)
+
+
+def k2_inputs(M, C, H, L1, O, biases, gen, weights=None):
+    """(x, w0, b0, wh, bh, wout, bout) of one MLP chain forward on the card:
+    random x, and the given weights or random ones scaled by their fan in
+    (biases None unless `biases`)."""
+    x = torch.randn((M, C), generator=gen, device="cuda")
+    return (x, *(weights if weights is not None else _random_weights(C, H, L1, O, biases, gen)))
+
+
 def k3_inputs(M, C, H, L1, O, biases, gen, weights=None):
     """(x, g, w0, b0, wh, bh, wout) of one MLP chain backward on the card:
     random x and g, and the given weights or random ones scaled by their fan
     in (biases None unless `biases`)."""
-    dev = "cuda"
-    x = torch.randn((M, C), generator=gen, device=dev)
-    g = torch.randn((M, O), generator=gen, device=dev)
+    x = torch.randn((M, C), generator=gen, device="cuda")
+    g = torch.randn((M, O), generator=gen, device="cuda")
     if weights is None:
-        def w(*shape):
-            return torch.randn(shape, generator=gen, device=dev) / shape[-1] ** 0.5
-        weights = (w(H, C), w(H) if biases else None, w(L1, H, H),
-                   w(L1, H) if biases else None, w(O, H))
+        weights = _random_weights(C, H, L1, O, biases, gen, with_bout=False)
     return (x, g, *weights)

@@ -16,9 +16,6 @@ import torch.nn.functional as F
 from ... import _build
 from ._checks import ptr, require_cuda_f32, require_no_grad, require_shape
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-
-
 def _check_chain(name: str, tensors: dict):
     """Device, type, layout and shape checks of a chain's tensors -> (M, C, H, L1, O)."""
     require_cuda_f32(name, **tensors)
@@ -55,15 +52,15 @@ def fused_relu_mlp(x, w0, b0, wh, bh, wout, bout, is_res: bool = False):
     tensors = dict(x=x, w0=w0, b0=b0, wh=wh, bh=bh, wout=wout, bout=bout)
     require_no_grad(name, **tensors)
     M, C, H, L1, O = _check_chain(name, tensors)
-    # the smallest row tile (16 rows) keeps two activation buffers and one
-    # weight chunk in shared memory (csrc/mlp_chain_fwd.cu, smem_bytes)
-    if (2 * 16 * (max(C, H) + 1) + 32 * 129) * 4 > _SMEM_LIMIT:
+    lib = _build.lib()
+    # the launcher's own plan (csrc/mlp_chain_fwd.cu), asked before any launch
+    if lib.npf_mlp_chain_fwd_smem(M, C, H, O) < 0:
         raise ValueError(f"{name}: widths C={C}, H={H} exceed the kernel's shared memory")
     out = torch.empty((M, O), device=x.device, dtype=torch.float32)
     if M == 0 or O == 0:
         return out
     stream = torch.cuda.current_stream().cuda_stream
-    err = _build.lib().npf_mlp_chain_fwd(
+    err = lib.npf_mlp_chain_fwd(
         ptr(x), M, C, ptr(w0), ptr(b0), ptr(wh), ptr(bh), L1, H,
         ptr(wout), ptr(bout), O, int(is_res), ptr(out), stream,
     )

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from npf_gwwaveform_tpu_torch import _build
-from npf_gwwaveform_tpu_torch.kernel_ab import ptxas_report
-from npf_gwwaveform_tpu_torch.kernel_measure import bound, k1_bound, k3_bound
+from npf_gwwaveform_tpu_torch.kernel_ab import k2_errs, ptxas_report
+from npf_gwwaveform_tpu_torch.kernel_measure import bound, k1_bound, k2_bound, k3_bound
 from npf_gwwaveform_tpu_torch.models.convnp import ConvCNP
 from npf_gwwaveform_tpu_torch.score import eval_splitter, score_batch, summary_metrics
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace, GWWaveformGenerator
@@ -91,6 +91,50 @@ def test_k3_bound_at_the_training_shape():
     t, by = k3_bound(*args)
     assert by == "operations" and t == pytest.approx(
         (2 * M * (C * H + L1 * H * H) + 4 * M * (H * C + L1 * H * H + O * H)) / 67e9)
+
+
+@pytest.mark.parametrize("M,expected_ms", [(8192, 0.0161), (65536, 0.1287)])
+def test_k2_bound_at_the_decoder_shapes(M, expected_ms):
+    """The decoder chain (C = H = 128, L1 = 3, O = 2) is 65,792 multiply-adds
+    a row: 1.08 GFLOP at the training shape, 8.62 at the scoring shape, set by
+    operations at 67 TFLOP/s (its 34 MB of x and out take 0.010 ms)."""
+    C, H, L1, O = 128, 128, 3, 2
+    args = (torch.zeros(M, C), torch.zeros(H, C), torch.zeros(H), torch.zeros(L1, H, H),
+            torch.zeros(L1, H), torch.zeros(O, H), torch.zeros(O))
+    t, by = k2_bound(*args)
+    assert by == "operations" and t == pytest.approx(
+        2 * M * (C * H + L1 * H * H + H * O) / 67e9)
+    assert t == pytest.approx(expected_ms, abs=5e-5)
+    t_no_bias, _ = k2_bound(args[0], args[1], None, args[3], None, args[5], None)
+    assert t_no_bias == t
+
+
+def test_k2_ab_errors_are_absolute_and_of_the_max_magnitude():
+    ref = torch.tensor([[1.0, -4.0], [2.0, 0.5]])
+    out = ref.clone()
+    out[1, 0] += 1e-3
+    errs = k2_errs((out,), (ref,))
+    assert errs["max_abs_err"] == pytest.approx(1e-3, rel=1e-3)
+    assert errs["rel_err"] == pytest.approx(1e-3 / 4.0, rel=1e-3)
+
+
+def test_load_leaves_entry_points_an_earlier_build_lacks(monkeypatch):
+    """An earlier commit's library (kernel_ab's old build) may lack an entry
+    point of the table: it loads, with the others' signatures set."""
+    class Fn:
+        pass
+
+    class Lib:
+        def __init__(self, path):
+            for name in _build._SIGNATURES:
+                if name != "npf_mlp_chain_fwd_smem":
+                    setattr(self, name, Fn())
+
+    monkeypatch.setattr(_build.ctypes, "CDLL", Lib)
+    handle = _build.load("old.so")
+    assert not hasattr(handle, "npf_mlp_chain_fwd_smem")
+    assert handle.npf_mlp_chain_bwd_scratch.restype is _build.ctypes.c_longlong
+    assert handle.npf_mlp_chain_fwd.argtypes == _build._SIGNATURES["npf_mlp_chain_fwd"]
 
 
 def test_k1_bound_counts_only_real_keys():

@@ -19,6 +19,7 @@ import torch
 
 import npf_gwwaveform_tpu.ops.pallas.setconv_kernel as sk
 from npf_gwwaveform_tpu.ops.pallas.mlp_chain_kernel import fused_relu_mlp as jax_fused_relu_mlp
+from npf_gwwaveform_tpu_torch.kernel_measure import K2_CASES
 from npf_gwwaveform_tpu_torch.ops.kernels._checks import require_no_grad
 from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
     FusedReluMLPFn, fused_relu_mlp, fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain,
@@ -114,6 +115,27 @@ def test_mlp_chain_plain_matches_pallas(L1, is_res, biases):
         t(x), t(w0.T), t(b0), t(np.transpose(wh, (0, 2, 1))), t(bh), t(wout.T), t(bout),
         is_res=is_res)
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", K2_CASES[2:], ids=lambda c: c[0])
+def test_mlp_chain_plain_matches_pallas_at_the_chip_cases_widths(case):
+    """K2's oracle on the card (`fused_relu_mlp_plain`) against the Pallas
+    forward at the widths of chip_smoke.py's K2 edge cases (C != H, H over
+    128, O on each side of the small-O output, a two-pass output, the wide
+    kernel's widths), at small M. Tolerance
+    1e-5 of the output's max magnitude (float32 on both sides, other
+    summation orders over up to 1,600 features; the residual chains reach
+    magnitudes of ~150)."""
+    _, _, C, H, L1, O, is_res, biases = case
+    x, w0, b0, wh, bh, wout, bout = _mlp_inputs(C + H + O, 13, C, H, L1, O, biases)
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    ref = np.asarray(jax_fused_relu_mlp(j(x), j(w0), j(b0), j(wh), j(bh), j(wout), j(bout),
+                                        is_res=is_res, compute_dtype=jnp.float32))
+    t = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    out = fused_relu_mlp_plain(
+        t(x), t(w0.T), t(b0), t(np.transpose(wh, (0, 2, 1))), t(bh), t(wout.T), t(bout),
+        is_res=is_res)
+    _assert_rel(out.numpy(), ref, ATOL)
 
 
 def test_mlp_chain_wrapper_uses_plain_on_cpu():
