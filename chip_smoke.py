@@ -33,13 +33,28 @@ Phases, each announced with the seconds elapsed:
   8. the training path: train the flagship configuration from the port's
      init for 500 steps at batch 32 (`train_gw.run`, into a temporary
      directory), check the launch counts, that the loss falls, a kernel-path
-     train step against a plain-path one, and that the written run reloads.
+     train step against a plain-path one, and that the written run reloads;
+  9. K2-bf16 (the chain forward in bfloat16 compute) against its plain
+     version at the scoring and training decoder shapes with the run's
+     weights and at K2's edge cases (the two widths past its shared memory
+     must be refused before any launch), and K3-bf16 against its plain
+     version at K3's cases; each pair must agree where they round, and two
+     launches must give the same bits;
+ 10. the bf16 scoring path: score the same 2048 thetas in bfloat16 compute
+     with the same context draws, check the launch counts (no float32 K2 or
+     K3), the quality bands and the gap to the float32 score, then one batch
+     of the kernel path against the same path with every kernel replaced by
+     its plain version;
+ 11. the bf16 training path: 500 steps at batch 32 from seed 0 in bfloat16
+     compute, the launch counts, that the loss falls, and one step of the
+     kernel path against the plain-kernel path.
 It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -58,6 +73,7 @@ from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.kernel_measure import (
     K2_CASES, k1_bound, k1_inputs, k2_bound, k2_inputs, k3_bound, k3_inputs, time_ms,
 )
+from npf_gwwaveform_tpu_torch.ops.kernels import mlp_chain, setconv
 from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
     fused_relu_mlp, fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain, fused_relu_mlp_plain,
 )
@@ -66,7 +82,7 @@ from npf_gwwaveform_tpu_torch.score import (
     eval_splitter, load_model, make_eval_batch, read_run_thetas, run_generator, score_batch,
     score_run,
 )
-from npf_gwwaveform_tpu_torch.utils.helpers import linspace
+from npf_gwwaveform_tpu_torch.utils.helpers import linspace, set_numerics
 
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "results", "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1")
@@ -89,7 +105,9 @@ K3_RTOL = 1e-4
 GRAD_RTOL = 1e-4
 # one train step, kernel path vs plain path on identical parameters and batch:
 # loss relative, each parameter's gradient against its max magnitude (cuDNN's
-# conv backward sums in no fixed order)
+# conv backward sums in no fixed order by default; the kernels sum in other
+# orders than the plain path; train-mode BatchNorm magnifies both in its
+# biases' gradients)
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_RTOL = 1e-3
 TRAIN_STEPS, TRAIN_BATCH = 500, 32
@@ -101,6 +119,39 @@ TRAIN_STEPS, TRAIN_BATCH = 500, 32
 # the H100, only some get there by step 500; the port's train step equals the
 # JAX step to float32 rounding on identical batches).
 LOSS_FALL_NATS = 300.0
+
+BF16 = torch.bfloat16
+# K2-bf16 against its plain version: every element within one bf16 ulp of
+# the larger of the two magnitudes (both sum the same exact products in f32
+# in the same order, so identical bits are expected; the share that differs
+# is printed)
+K2_BF16_ULPS = 1
+# K3-bf16: the bars of tests/test_torch_bf16_kernels.py. dx within two bf16
+# ulps of its row's largest magnitude, at most 2% of elements differing
+# (identical bits expected, as for K2-bf16); dW/db 1e-2 of each one's max
+# magnitude (f32 row sums in another order than the plain version's)
+K3_BF16_DX_ULPS, K3_BF16_DX_SHARE, K3_BF16_DW_RTOL = 2, 0.02, 1e-2
+# bf16 scoring of the 2048 thetas against the float32 scoring with the same
+# context draws, from the JAX package on the CPU (tests/jax_bf16_score_gap.py,
+# op-by-op bf16, fused decoder): JAX's bf16 mean LL sits 0.576 nats below its
+# float32 one, per-waveform differences with a standard deviation of 2.38
+# (0.053 for a mean of 2048); its median mismatch moved by 1.4e-5. The port's
+# gap must lie within 0.3 nats (5.7 of those standard errors) of JAX's, and
+# its median mismatch move within 2e-4 (9% of the median, three times the
+# largest move seen: 6.9e-5, the port's own bf16 against float32 on the CPU)
+BF16_D_MEAN_LL, BF16_D_MEAN_LL_TOL = -0.576, 0.3
+BF16_D_MEDIAN_MISMATCH = 2e-4
+# the bf16 kernel path against the same path with every kernel replaced by
+# its plain version, measured against the bf16-vs-float32 gap of the same
+# batch, the bars of tests/test_torch_bf16_slice.py: the RMS distance of loc
+# at most half the gap's RMS, the largest at most 3/4 of the gap's largest.
+# K2-bf16 and its plain version agree bit for bit; K1 and its plain version
+# differ at float32 rounding, which moves a few bf16 roundings after it
+BF16_PATH_RMS, BF16_PATH_MAX = 0.5, 0.75
+# one bf16 train step, kernel path against the plain-kernel path: the bars
+# of tests/test_torch_bf16_train.py (loss 1e-3 relative; each gradient 1e-1
+# of its max magnitude)
+BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL = 1e-3, 1e-1
 
 _T0 = time.perf_counter()
 
@@ -208,6 +259,130 @@ def check_k3(cases):
     return rows
 
 
+def bf16_ulp(v):
+    """One bf16 ulp at |v|: 2^(e - 7) for |v| in [2^e, 2^(e+1))."""
+    e = torch.floor(torch.log2(v.abs().clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.exp2(e - 7)
+
+
+def ulp_report(a, b, per_row=False):
+    """(largest |a - b| in bf16 ulps of the larger magnitude, or of the row's
+    largest with `per_row`; share of elements that differ)."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    scale = torch.maximum(a.abs(), b.abs())
+    if per_row:
+        scale = scale.amax(dim=-1, keepdim=True)
+    return ((diff / bf16_ulp(scale)).max().item() if diff.numel() else 0.0,
+            (diff > 0).float().mean().item() if diff.numel() else 0.0)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside, the autograd Functions reach each kernel's plain version in
+    place of its wrapper (on CUDA tensors too): the reference path of the
+    kernel-path checks, at the kernels' own rounding points."""
+    saved = (setconv.setconv_exprbf_fwd, mlp_chain.fused_relu_mlp, mlp_chain.fused_relu_mlp_bwd)
+    setconv.setconv_exprbf_fwd = setconv.setconv_exprbf_plain
+    mlp_chain.fused_relu_mlp = mlp_chain.fused_relu_mlp_plain
+    mlp_chain.fused_relu_mlp_bwd = mlp_chain.fused_relu_mlp_bwd_plain
+    try:
+        yield
+    finally:
+        setconv.setconv_exprbf_fwd, mlp_chain.fused_relu_mlp, mlp_chain.fused_relu_mlp_bwd = saved
+
+
+def reset_counts():
+    setconv_exprbf_fwd.launches = 0
+    for fn in (fused_relu_mlp, fused_relu_mlp_bwd):
+        fn.launches = fn.launches_bf16 = 0
+
+
+def counts():
+    """(K1, K2, K3, K2-bf16, K3-bf16) launches since `reset_counts`."""
+    return (setconv_exprbf_fwd.launches, fused_relu_mlp.launches, fused_relu_mlp_bwd.launches,
+            fused_relu_mlp.launches_bf16, fused_relu_mlp_bwd.launches_bf16)
+
+
+def check_k2_bf16(cases):
+    rows = []
+    for name, args, is_res in cases:
+        x, w0, _, wh, _, wout, _ = args
+        M, C = x.shape
+        H, L1, O = w0.shape[0], wh.shape[0], wout.shape[0]
+        call = lambda: fused_relu_mlp(*args, is_res=is_res, compute_dtype=BF16)  # noqa: E731
+        if _build.lib().npf_mlp_chain_fwd_bf16_smem(M, C, H, O) < 0:
+            before = fused_relu_mlp.launches_bf16
+            try:
+                call()
+            except ValueError as e:
+                print(f"K2-bf16 {name}: M={M} C={C} H={H}: refused before any launch ({e})")
+            else:
+                raise AssertionError(f"K2-bf16 {name}: widths past its shared memory not refused")
+            if fused_relu_mlp.launches_bf16 != before:
+                raise AssertionError(f"K2-bf16 {name}: a refused call launched")
+            continue
+        o_k, o_k2 = call(), call()
+        o_p = fused_relu_mlp_plain(*args, is_res=is_res, compute_dtype=BF16)
+        torch.cuda.synchronize()
+        same = torch.equal(o_k, o_k2)
+        ulps, share = ulp_report(o_k, o_p)
+        err = (o_k.float() - o_p.float()).abs().max().item()
+        finite = bool(torch.isfinite(o_k.float()).all()) and o_k.dtype == BF16
+        print(f"K2-bf16 {name}: M={M} C={C} H={H} L1={L1} O={O} res={is_res} max {ulps:.2f} "
+              f"ulps, {share:.2e} of elements differ; repeat bit-identical {same}")
+        if not (finite and ulps <= K2_BF16_ULPS):
+            raise AssertionError(f"K2-bf16 {name} disagrees with its plain version")
+        if not same:
+            raise AssertionError(f"K2-bf16 {name}: two launches on the same inputs differ")
+        ms = time_ms(call)
+        plain_ms = time_ms(lambda: fused_relu_mlp_plain(*args, is_res=is_res, compute_dtype=BF16),
+                           reps=2, warmup=1)
+        bms, by = k2_bound(*args)
+        rows.append(dict(shape=name, M=M, C=C, H=H, L1=L1, O=O, max_abs_err=err, max_ulps=ulps,
+                         share_differing=share, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by))
+        print(f"   kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return rows
+
+
+def check_k3_bf16(cases):
+    rows = []
+    names = ("dx", "dw0", "db0", "dwh", "dbh", "dwout", "dbout")
+    for name, args, is_res in cases:
+        x, g, w0, b0, wh, bh, wout = args
+        M, C = x.shape
+        H, L1, O = w0.shape[0], wh.shape[0], wout.shape[0]
+        call = lambda: fused_relu_mlp_bwd(*args, is_res=is_res, compute_dtype=BF16)  # noqa: E731
+        out_k, out_k2 = call(), call()
+        out_p = fused_relu_mlp_bwd_plain(*args, is_res=is_res, compute_dtype=BF16)
+        torch.cuda.synchronize()
+        ulps, share = ulp_report(out_k[0], out_p[0], per_row=True)
+        rel = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+               for n, a, b in zip(names[1:], out_k[1:], out_p[1:]) if b.numel()}
+        same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in out_k)
+        worst = max(rel, key=rel.get)
+        print(f"K3-bf16 {name}: M={M} C={C} H={H} L1={L1} O={O} res={is_res} biases="
+              f"{b0 is not None} dx max {ulps:.2f} ulps of its row's max, {share:.2e} of "
+              f"elements differ; dW/db worst {rel[worst]:.3e} ({worst}); repeat bit-identical "
+              f"{same}")
+        if not (finite and same and out_k[0].dtype == BF16 and ulps <= K3_BF16_DX_ULPS
+                and share <= K3_BF16_DX_SHARE and rel[worst] <= K3_BF16_DW_RTOL):
+            raise AssertionError(f"K3-bf16 {name} disagrees with its plain version or is not "
+                                 "repeatable")
+        ms = time_ms(call)
+        plain_ms = time_ms(lambda: fused_relu_mlp_bwd_plain(*args, is_res=is_res,
+                                                            compute_dtype=BF16),
+                           reps=2, warmup=1)
+        bms, by = k3_bound(*args)
+        rows.append(dict(shape=name, M=M, C=C, H=H, L1=L1, O=O, max_abs_err=rel[worst],
+                         dx_max_ulps=ulps, dx_share_differing=share, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by))
+        print(f"   kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return rows
+
+
 def _grad_errs(pairs):
     """{name: max |a - b| / max |b|} over pairs of gradients."""
     return {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
@@ -276,24 +451,32 @@ def _bn_cancelled(name):
     return ".conv1." in name and name.endswith(".bias")
 
 
-def check_train_step(model, summary, gen):
+def check_train_step(model, summary, gen, dtype=None):
     """One train step on the kernel path against one on the plain path, on
     copies with identical parameters and one identical split batch. Each
-    parameter's gradient is held to STEP_GRAD_RTOL of its max magnitude; the
-    conv1 biases of the BatchNorm blocks, whose gradient is zero in exact
-    arithmetic, are held on both paths below STEP_GRAD_RTOL of the max
-    magnitude of their block's conv1.pointwise weight gradient."""
+    parameter's gradient is held to the step's gradient bar of its max
+    magnitude; the conv1 biases of the BatchNorm blocks, whose gradient is
+    zero in exact arithmetic, are held on both paths below that bar of the
+    max magnitude of their block's conv1.pointwise weight gradient. In
+    float32 the plain path is the model without kernels (`use_kernels=False`);
+    in bf16 (`dtype`) it is the kernel path with every kernel replaced by its
+    plain version, since the Dense decoder rounds elsewhere than the chain."""
+    bf16 = dtype is not None
+    loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL) if bf16
+                            else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
     space, wave = GWParameterSpace(), run_generator(summary)
     theta = space.sample(TRAIN_BATCH, gen)
     x, y, cond = make_eval_batch(theta, wave, space)
     batch = None
     res = {}
-    for label, use in (("kernel", True), ("plain", False)):
-        trainer = train_gw.build_trainer(summary, 1, "cuda", use_kernels=use)
+    for label in ("kernel", "plain"):
+        trainer = train_gw.build_trainer(summary, 1, "cuda", use_kernels=label == "kernel" or bf16,
+                                         dtype=dtype)
         trainer.model.load_state_dict(model.state_dict())
         if batch is None:
             batch = trainer.splitter(gen, x, y, condition=cond)
-        loss = trainer.loss_and_grads(batch)
+        with plain_kernels() if bf16 and label == "plain" else contextlib.nullcontext():
+            loss = trainer.loss_and_grads(batch)
         res[label] = (loss, {n: p.grad for n, p in trainer.model.named_parameters()})
     torch.cuda.synchronize()
     (loss_k, grads_k), (loss_p, grads_p) = res["kernel"], res["plain"]
@@ -304,12 +487,12 @@ def check_train_step(model, summary, gen):
         scale = grads_p[n.rsplit(".", 2)[0] + ".pointwise.weight"].abs().max()
         zero[n] = (max(grads_k[n].abs().max(), grads_p[n].abs().max()) / scale).item()
     worst, worst_zero = max(errs, key=errs.get), max(zero, key=zero.get)
-    print(f"train step, kernel vs plain path: loss {loss_k.item():.4f} vs {loss_p.item():.4f} "
+    print(f"train step{' (bf16)' if bf16 else ''}, kernel vs plain path: loss "
+          f"{loss_k.item():.4f} vs {loss_p.item():.4f} "
           f"(rel {loss_rel:.3e}); {len(errs)} parameter gradients, worst {errs[worst]:.3e} of "
           f"its max magnitude ({worst}); {len(zero)} BatchNorm-cancelled biases, largest "
           f"{zero[worst_zero]:.3e} of their weight's gradient ({worst_zero})")
-    if not (loss_rel <= STEP_LOSS_RTOL and errs[worst] <= STEP_GRAD_RTOL
-            and zero[worst_zero] <= STEP_GRAD_RTOL):
+    if not (loss_rel <= loss_rtol and errs[worst] <= grad_rtol and zero[worst_zero] <= grad_rtol):
         raise AssertionError("the kernel-path train step disagrees with the plain path")
     return loss_rel, errs[worst]
 
@@ -339,8 +522,12 @@ def main() -> int:
     nvcc_version = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                                   text=True, check=True).stdout.strip().splitlines()[-1]
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}); {nvcc_version}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics()
+    # cuDNN's deterministic algorithms, so that the run is reproducible: with
+    # its default backward, each run's 500 steps reach another model, and the
+    # float32 one-step check above measured 3e-5 to 1.2e-3 (one model in
+    # eight over its bar) on the models they reached (PERF.md, section 6)
+    torch.backends.cudnn.deterministic = True
 
     phase("build")
     res = _build.build(verbose=True)
@@ -405,19 +592,16 @@ def main() -> int:
     check_autograd(model, gen)
 
     phase("scoring path: score run_1 through K1 and K2")
-    setconv_exprbf_fwd.launches = 0
-    fused_relu_mlp.launches = 0
-    fused_relu_mlp_bwd.launches = 0
+    reset_counts()
     out = score_run(RUN_DIR, N_TEST, thetas_from=RUN_DIR, device="cuda")
-    score_launches = (setconv_exprbf_fwd.launches, fused_relu_mlp.launches,
-                      fused_relu_mlp_bwd.launches)
+    score_launches = counts()
     n_batches = -(-N_TEST // 256)
     print(f"scored {out['n']} waveforms in {out['seconds']:.2f}s: mean LL {out['mean_ll']:.3f}, "
           f"median mismatch {out['median_mismatch']:.6f}, p90 {out['mismatch_p90']:.4f}, "
           f"frac < 0.1 {out['frac_below_0.1']:.4f}; launches K1 {score_launches[0]}, "
           f"K2 {score_launches[1]}, K3 {score_launches[2]}")
-    if score_launches != (2 * n_batches, n_batches, 0):
-        raise AssertionError(f"expected {2 * n_batches} K1, {n_batches} K2 and no K3 launches")
+    if score_launches != (2 * n_batches, n_batches, 0, 0, 0):
+        raise AssertionError(f"expected {2 * n_batches} K1, {n_batches} K2 and no other launches")
     if not (np.isfinite(out["ll"]).all() and np.isfinite(out["mismatch"]).all()
             and out["n"] == N_TEST):
         raise AssertionError("non-finite or missing per-waveform results")
@@ -458,13 +642,10 @@ def main() -> int:
           f"{TRAIN_BATCH} from the port's init")
     train_summary = gw_train_summary()
     trainer = train_gw.build_trainer(train_summary, TRAIN_STEPS, "cuda", seed=0)
-    setconv_exprbf_fwd.launches = 0
-    fused_relu_mlp.launches = 0
-    fused_relu_mlp_bwd.launches = 0
+    reset_counts()
     history, losses, seconds, step_seconds = train_gw.train(
         trainer, train_summary, TRAIN_STEPS, TRAIN_BATCH, time_steps=True)
-    train_launches = (setconv_exprbf_fwd.launches, fused_relu_mlp.launches,
-                      fused_relu_mlp_bwd.launches)
+    train_launches = counts()
     losses = losses.cpu().numpy()
     early, late = float(np.median(losses[:50])), float(np.median(losses[250:500]))
     step_ms = 1e3 * float(np.median(step_seconds))
@@ -476,9 +657,9 @@ def main() -> int:
           f"(fell {early - late:.2f} nats; below 0: {late < 0.0})")
     print(f"train step {step_ms:.3f} ms (median of {TRAIN_STEPS}, host clock, synchronised): "
           f"{1e3 * TRAIN_BATCH / step_ms:.0f} wf/s on {smi}")
-    if train_launches != (2 * TRAIN_STEPS, TRAIN_STEPS, TRAIN_STEPS):
+    if train_launches != (2 * TRAIN_STEPS, TRAIN_STEPS, TRAIN_STEPS, 0, 0):
         raise AssertionError(f"expected {2 * TRAIN_STEPS} K1, {TRAIN_STEPS} K2 and {TRAIN_STEPS} "
-                             "K3 launches")
+                             "K3 launches and no bf16 ones")
     if not np.isfinite(losses).all():
         raise AssertionError("non-finite training loss")
     if not late <= early - LOSS_FALL_NATS:
@@ -511,17 +692,142 @@ def main() -> int:
         if not (same and np.isfinite(scored["ll"]).all()):
             raise AssertionError("the written run does not reload to the trained model")
 
-    launches_by_path = lambda i: {"score": score_launches[i], "train": train_launches[i]}  # noqa
+    phase("K2-bf16 mlp_chain_fwd_bf16 vs plain")
+    with torch.inference_mode():
+        k2b_rows = check_k2_bf16([
+            ("decoder", k2_inputs(65536, 128, 128, 3, 2, True, gen, dec_w, BF16), False),
+            ("decoder train", k2_inputs(TRAIN_BATCH * 256, 128, 128, 3, 2, True, gen, dec_w, BF16),
+             False),
+            *((name, k2_inputs(M, C, H, L1, O, biases, gen, dtype=BF16), is_res)
+              for name, M, C, H, L1, O, is_res, biases in K2_CASES),
+        ])
+
+        phase("K3-bf16 mlp_chain_bwd_bf16 vs plain")
+        k3b_rows = check_k3_bf16([
+            ("decoder train", k3_inputs(TRAIN_BATCH * 256, 128, 128, 3, 2, True, gen, dec_w[:5],
+                                        BF16), False),
+            ("decoder score shape", k3_inputs(65536, 128, 128, 3, 2, True, gen, dec_w[:5], BF16),
+             False),
+            ("no-hidden residual no-bias", k3_inputs(1000, 128, 128, 0, 3, False, gen, dtype=BF16),
+             True),
+            ("ragged residual", k3_inputs(4099, 37, 64, 2, 5, True, gen, dtype=BF16), True),
+            ("wide", k3_inputs(3001, 200, 256, 2, 3, True, gen, dtype=BF16), False),
+            ("wide residual", k3_inputs(3001, 200, 320, 2, 3, True, gen, dtype=BF16), True),
+        ])
+
+    phase("bf16 scoring path: score run_1 in bfloat16 compute through K1 and K2-bf16")
+    reset_counts()
+    out16 = score_run(RUN_DIR, N_TEST, thetas_from=RUN_DIR, device="cuda", dtype=BF16)
+    score16_launches = counts()
+    d_ll = out16["mean_ll"] - out["mean_ll"]
+    d_mm = out16["median_mismatch"] - out["median_mismatch"]
+    d_wf = out16["ll"] - out["ll"]
+    print(f"scored {out16['n']} waveforms in bf16 in {out16['seconds']:.2f}s: mean LL "
+          f"{out16['mean_ll']:.3f}, median mismatch {out16['median_mismatch']:.6f}; against "
+          f"float32 with the same context draws: mean LL {d_ll:+.4f} (JAX {BF16_D_MEAN_LL:+.3f}), "
+          f"median mismatch {d_mm:+.3e}, per-waveform LL differences sd {d_wf.std():.3f}, largest "
+          f"{np.abs(d_wf).max():.2f}; launches K1 {score16_launches[0]}, K2 {score16_launches[1]}, "
+          f"K3 {score16_launches[2]}, K2-bf16 {score16_launches[3]}, K3-bf16 "
+          f"{score16_launches[4]}")
+    if score16_launches != (2 * n_batches, 0, 0, n_batches, 0):
+        raise AssertionError(f"expected {2 * n_batches} K1, {n_batches} K2-bf16 and no other "
+                             "launches")
+    if not (np.isfinite(out16["ll"]).all() and np.isfinite(out16["mismatch"]).all()
+            and out16["n"] == N_TEST):
+        raise AssertionError("non-finite or missing per-waveform results in bf16")
+    if not LL_BAND[0] <= out16["mean_ll"] <= LL_BAND[1]:
+        raise AssertionError(f"bf16 mean LL {out16['mean_ll']} outside {LL_BAND}")
+    if not MISMATCH_BAND[0] <= out16["median_mismatch"] <= MISMATCH_BAND[1]:
+        raise AssertionError(f"bf16 median mismatch {out16['median_mismatch']} outside "
+                             f"{MISMATCH_BAND}")
+    if not (abs(d_ll - BF16_D_MEAN_LL) <= BF16_D_MEAN_LL_TOL
+            and abs(d_mm) <= BF16_D_MEDIAN_MISMATCH):
+        raise AssertionError("the bf16 score's gap to the float32 score is not JAX's")
+
+    phase("bf16 scoring path: one batch, kernel path vs plain-kernel path")
+    model16 = load_model(RUN_DIR, "cuda", dtype=BF16)
+    theta = torch.from_numpy(read_run_thetas(RUN_DIR)[:256]).cuda()
+    outs = {}
+    with torch.inference_mode():
+        for label, m, ctx in (("kernel", model16, contextlib.nullcontext),
+                              ("plain-kernel", model16, plain_kernels),
+                              ("float32", model, contextlib.nullcontext)):
+            with ctx():
+                g = torch.Generator(device="cuda").manual_seed(1)
+                ll, _, _, o = score_batch(m, splitter, g, theta, gw_gen, space)
+                outs[label] = (o.p_yCc.loc, o.p_yCc.scale, ll)
+                torch.cuda.synchronize()
+                t = []
+                for _ in range(3):
+                    g = torch.Generator(device="cuda").manual_seed(1)
+                    t0 = time.perf_counter()
+                    score_batch(m, splitter, g, theta, gw_gen, space)
+                    torch.cuda.synchronize()
+                    t.append(time.perf_counter() - t0)
+            print(f"{label} path: one 256-waveform batch {1e3 * float(np.median(t)):.3f} ms "
+                  f"(median of 3, host clock)")
+    rms = lambda a: a.float().square().mean().sqrt().item()  # noqa: E731
+    loc_k, loc_p, loc_32 = outs["kernel"][0], outs["plain-kernel"][0], outs["float32"][0]
+    near, gap = rms(loc_k - loc_p), rms(loc_k - loc_32)
+    near_max, gap_max = ((loc_k - loc_p).abs().max().item(), (loc_k - loc_32).abs().max().item())
+    print(f"bf16 kernel vs plain-kernel path: loc RMS {near:.3e}, largest {near_max:.3e}; the "
+          f"bf16-float32 gap of the same batch: RMS {gap:.3e}, largest {gap_max:.3e}; scale "
+          f"{(outs['kernel'][1] - outs['plain-kernel'][1]).abs().max().item():.3e}, LL "
+          f"{(outs['kernel'][2] - outs['plain-kernel'][2]).abs().max().item():.3e}")
+    if not (near <= BF16_PATH_RMS * gap and near_max <= BF16_PATH_MAX * gap_max):
+        raise AssertionError("the bf16 kernel path disagrees with its plain-kernel path")
+
+    phase(f"bf16 training path: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} from seed 0")
+    trainer16 = train_gw.build_trainer(train_summary, TRAIN_STEPS, "cuda", seed=0, dtype=BF16)
+    reset_counts()
+    history16, losses16, seconds16, step_seconds16 = train_gw.train(
+        trainer16, train_summary, TRAIN_STEPS, TRAIN_BATCH, time_steps=True)
+    train16_launches = counts()
+    losses16 = losses16.cpu().numpy()
+    early16, late16 = float(np.median(losses16[:50])), float(np.median(losses16[250:500]))
+    step16_ms = 1e3 * float(np.median(step_seconds16))
+    print(f"trained {TRAIN_STEPS} bf16 steps in {seconds16:.2f}s; launches K1 "
+          f"{train16_launches[0]}, K2 {train16_launches[1]}, K3 {train16_launches[2]}, K2-bf16 "
+          f"{train16_launches[3]}, K3-bf16 {train16_launches[4]}")
+    print("50-step mean losses: " + ", ".join(f"{h['step']}: {h['train_loss']:.1f}"
+                                              for h in history16))
+    print(f"median loss over steps 1-50 {early16:.2f}, over steps 251-500 {late16:.2f} "
+          f"(fell {early16 - late16:.2f} nats; below 0: {late16 < 0.0})")
+    print(f"bf16 train step {step16_ms:.3f} ms (median of {TRAIN_STEPS}, host clock, "
+          f"synchronised): {1e3 * TRAIN_BATCH / step16_ms:.0f} wf/s on {smi}")
+    if train16_launches != (2 * TRAIN_STEPS, 0, 0, TRAIN_STEPS, TRAIN_STEPS):
+        raise AssertionError(f"expected {2 * TRAIN_STEPS} K1, {TRAIN_STEPS} K2-bf16 and "
+                             f"{TRAIN_STEPS} K3-bf16 launches and no float32 K2 or K3")
+    if not np.isfinite(losses16).all():
+        raise AssertionError("non-finite bf16 training loss")
+    if not late16 <= early16 - LOSS_FALL_NATS:
+        raise AssertionError(f"the bf16 loss did not fall: median {early16:.2f} over steps "
+                             f"1-50, {late16:.2f} over steps 251-500")
+
+    phase("bf16 training path: one step, kernel path vs plain-kernel path")
+    check_train_step(trainer16.model, train_summary, gen, BF16)
+
+    def launches_by_path(i):
+        return {"score": score_launches[i], "train": train_launches[i],
+                "score_bf16": score16_launches[i], "train_bf16": train16_launches[i]}
+
+    mlp = "npf_gwwaveform_tpu/ops/pallas/mlp_chain_kernel.py"
     kernels = [
         kernel_entry("K1 setconv_fwd", "npf_gwwaveform_tpu_torch/csrc/setconv_fwd.cu",
                      "npf_gwwaveform_tpu/ops/pallas/setconv_kernel.py:45", train_launches[0],
                      k1_rows, ("ctx->grid train", "grid->trgt train"), launches_by_path(0)),
         kernel_entry("K2 mlp_chain_fwd", "npf_gwwaveform_tpu_torch/csrc/mlp_chain_fwd.cu",
-                     "npf_gwwaveform_tpu/ops/pallas/mlp_chain_kernel.py:63", train_launches[1],
-                     k2_rows, ("decoder train",), launches_by_path(1)),
+                     f"{mlp}:63", train_launches[1], k2_rows, ("decoder train",),
+                     launches_by_path(1)),
         kernel_entry("K3 mlp_chain_bwd", "npf_gwwaveform_tpu_torch/csrc/mlp_chain_bwd.cu",
-                     "npf_gwwaveform_tpu/ops/pallas/mlp_chain_kernel.py:83", train_launches[2],
-                     k3_rows, ("decoder train",), launches_by_path(2)),
+                     f"{mlp}:83", train_launches[2], k3_rows, ("decoder train",),
+                     launches_by_path(2)),
+        kernel_entry("K2-bf16 mlp_chain_fwd_bf16",
+                     "npf_gwwaveform_tpu_torch/csrc/mlp_chain_fwd_bf16.cu", f"{mlp}:63",
+                     train16_launches[3], k2b_rows, ("decoder train",), launches_by_path(3)),
+        kernel_entry("K3-bf16 mlp_chain_bwd_bf16",
+                     "npf_gwwaveform_tpu_torch/csrc/mlp_chain_bwd_bf16.cu", f"{mlp}:83",
+                     train16_launches[4], k3b_rows, ("decoder train",), launches_by_path(4)),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -46,10 +46,19 @@ _SIGNATURES = {
     "npf_mlp_chain_bwd_scratch": [_I, _I, _I, _I, _I],
     # x, g, M, C, w0, b0, wh, bh, L1, H, wout, O, is_res, dx, grads, scratch, stream
     "npf_mlp_chain_bwd": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+    # the bfloat16 chain (x, g, out and dx bf16; weights, biases and grads f32):
+    # the same arguments as its float32 counterpart above
+    "npf_mlp_chain_fwd_bf16": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P],
+    "npf_mlp_chain_fwd_bf16_smem": [_I, _I, _I, _I],
+    # M, C, H, L1, O -> bytes of scratch (-1: widths too large)
+    "npf_mlp_chain_bwd_bf16_scratch": [_I, _I, _I, _I, _I],
+    "npf_mlp_chain_bwd_bf16": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P,
+                               _P],
 }
 # return types other than int
-_RESTYPES = {"npf_mlp_chain_bwd_scratch": ctypes.c_longlong,
-             "npf_mlp_chain_fwd_smem": ctypes.c_longlong}
+_RESTYPES = {name: ctypes.c_longlong for name in (
+    "npf_mlp_chain_bwd_scratch", "npf_mlp_chain_fwd_smem", "npf_mlp_chain_bwd_bf16_scratch",
+    "npf_mlp_chain_fwd_bf16_smem")}
 
 _lock = threading.Lock()
 _lib = None

@@ -10,6 +10,10 @@ counterpart of `npf_gwwaveform_tpu/configs.py::gw_model_from_summary`;
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from .models.convnp import ConvCNP
 
 R_DIM = 128
@@ -20,8 +24,12 @@ __all__ = ["gw_model_from_summary", "gw_train_summary", "run_tag", "R_DIM", "STE
 STEPS_PER_EPOCH = 1562
 
 
-def gw_model_from_summary(summary: dict, use_kernels: bool = True) -> ConvCNP:
-    """The run's architecture; raises on a knob the port does not cover.
+def gw_model_from_summary(summary: dict, use_kernels: bool = True,
+                          dtype: Optional[torch.dtype] = None) -> ConvCNP:
+    """The run's architecture in compute `dtype` (None: float32; bfloat16 as
+    `reproduce_gw.py --bf16` builds it); raises on a knob the port does not
+    cover. A run directory records no dtype: its parameters are float32
+    either way.
 
     The CNN kernel size is the summary's `cnn_kernel_size`, 19 when absent
     (the CNN factory's, not ConvCNP's class default of 11). `cnn_banded` and
@@ -45,7 +53,7 @@ def gw_model_from_summary(summary: dict, use_kernels: bool = True) -> ConvCNP:
         cnn_n_blocks=5, cnn_kernel_size=summary.get("cnn_kernel_size") or 19,
         cnn_norm="batch", cnn_n_conv_layers=2, cnn_norm_eps=1e-3,
         cond_dim=4 if summary.get("conditioned") else 0, cond_mode="film",
-        use_kernels=use_kernels,
+        use_kernels=use_kernels, dtype=dtype,
     )
 
 

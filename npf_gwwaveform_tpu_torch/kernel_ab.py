@@ -18,9 +18,13 @@ PyTorch version, for identical bits over two launches and for identical
 bits between the two builds, then timed over `--reps` launches in the order
 old, new, new, old (`kernel_measure.time_ms`: each run of launches is
 captured in a CUDA graph and replayed, so the host's launch overhead is not
-counted). Bounds are `kernel_measure`'s, as in `chip_smoke.py`. Prints one
-JSON line (also written to `--out`) with each case's times, bound and
-errors, and the card's name and power limit.
+counted). Bounds are `kernel_measure`'s, as in `chip_smoke.py`. The
+bfloat16 kernels (K2-bf16, K3-bf16) are timed in the new build alone at the
+decoder shapes (an earlier build may lack them), checked against their plain
+versions (identical bits for K2-bf16's output and K3-bf16's dx) and for
+identical bits over two launches. Prints one JSON line (also written to
+`--out`) with each case's times, bound and errors, and the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ from .ops.kernels.mlp_chain import (
 )
 from .ops.kernels.setconv import setconv_exprbf_fwd, setconv_exprbf_plain
 from .score import load_model
+from .utils.helpers import set_numerics
+
+BF16 = torch.bfloat16
 
 RUN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "results",
                        "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1")
@@ -66,6 +73,24 @@ def ab_case(libs, row, call, ref, err_fields, bound, reps):
             t[tag].append(time_ms(call, reps))
     row["bound_ms"], row["bound_by"] = bound
     return row, t
+
+
+def bf16_case(lib, row, call, ref, bound, reps):
+    """The new build's bf16 kernel on one case: whether its rounded output
+    (K2-bf16's out, K3-bf16's dx) has the plain version's bits, the largest
+    relative error of the rest (K3-bf16's dW/db), whether two launches give
+    the same bits, and two device times."""
+    with _build.using(lib):
+        out, again = call(), call()
+        row["rounded_equal_plain"] = torch.equal(out[0], ref[0])
+        row["f32_rel_err"] = max((((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                                  for a, b in zip(out[1:], ref[1:]) if b.numel()), default=0.0)
+        row["repeat_identical"] = all(torch.equal(a, b) for a, b in zip(out, again))
+        t = [time_ms(call, reps) for _ in range(2)]
+    row["new_ms"], row["new_ms_each"] = sum(t) / 2, t
+    row["bound_ms"], row["bound_by"] = bound
+    row["new_bound_share"] = row["bound_ms"] / row["new_ms"]
+    return row
 
 
 def k1_errs(out, ref):
@@ -111,7 +136,7 @@ def main(argv=None) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_numerics()
     builds = {"new": _build.build(verbose=True), "old": _build.build(True, args.old_csrc)}
     libs = {tag: _build.load(b.path) for tag, b in builds.items()}
     if not hasattr(libs["old"], "npf_mlp_chain_fwd_smem"):
@@ -120,7 +145,7 @@ def main(argv=None) -> dict:
     ptxas = {tag: ptxas_report(b.log) for tag, b in builds.items()}
     for tag, rows in ptxas.items():
         for r in rows:
-            if any(k in r["kernel"] for k in ("setconv", "mlp_chain_fwd", "mlp_chain_bwd")):
+            if any(k in r["kernel"] for k in ("setconv", "mlp_chain")):
                 print(f"ptxas {tag}: {r}")
 
     model = load_model(args.run_dir, "cpu")
@@ -159,6 +184,18 @@ def main(argv=None) -> dict:
                 libs, dict(kernel="K2", shape=name, M=M, C=C, H=H, L1=L1, O=O, is_res=is_res),
                 lambda: (fused_relu_mlp(*a2, is_res=is_res),),
                 (fused_relu_mlp_plain(*a2, is_res=is_res),), k2_errs, k2_bound(*a2), args.reps))
+        bf16_rows = []
+        for M in (8192, 65536):
+            a2 = k2_inputs(M, 128, 128, 3, 2, True, gen, weights, BF16)
+            bf16_rows.append(bf16_case(
+                libs["new"], dict(kernel="K2-bf16", shape=f"M={M}", M=M),
+                lambda: (fused_relu_mlp(*a2, compute_dtype=BF16),),
+                (fused_relu_mlp_plain(*a2, compute_dtype=BF16),), k2_bound(*a2), args.reps))
+            a3 = k3_inputs(M, 128, 128, 3, 2, True, gen, weights[:5], BF16)
+            bf16_rows.append(bf16_case(
+                libs["new"], dict(kernel="K3-bf16", shape=f"M={M}", M=M),
+                lambda: fused_relu_mlp_bwd(*a3, compute_dtype=BF16),
+                fused_relu_mlp_bwd_plain(*a3, compute_dtype=BF16), k3_bound(*a3), args.reps))
     cases = []
     for row, t in rows:
         for tag in ("old", "new"):
@@ -168,14 +205,17 @@ def main(argv=None) -> dict:
         row["speedup"] = row["old_ms"] / row["new_ms"]
         print(json.dumps(row))
         cases.append(row)
-    res = dict(card=smi, ptxas=ptxas, cases=cases)
+    for row in bf16_rows:
+        print(json.dumps(row))
+    res = dict(card=smi, ptxas=ptxas, cases=cases, bf16_cases=bf16_rows)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
-    print(json.dumps(dict(card=smi, cases=[{k: r[k] for k in ("kernel", "shape", "old_ms", "new_ms",
-                                                               "bound_ms", "speedup")}
-                                           for r in cases])))
+    print(json.dumps(dict(card=smi, cases=[{k: r.get(k) for k in ("kernel", "shape", "old_ms",
+                                                                   "new_ms", "bound_ms", "speedup",
+                                                                   "builds_identical")}
+                                           for r in cases + bf16_rows])))
     return res
 
 

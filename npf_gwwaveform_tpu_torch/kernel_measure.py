@@ -4,9 +4,13 @@ inputs of the kernels' cases.
 
 `bound` is the larger of two times: the bytes that the function must move
 (each input read once, each output written once) over the card's memory
-rate, and the operations that it does over the card's float32 rate outside
-tensor cores (the H100 SXM's published dense peaks). `k1_bound`, `k2_bound`
-and `k3_bound` count both for one call of a kernel on its inputs.
+rate, and the operations that it does over the card's peak rate for their
+type (the H100 SXM's published dense peaks): float32 outside tensor cores,
+or for the bfloat16 chain the bf16 tensor cores' rate, the least time the
+card could take for bf16 products summed in f32. `k1_bound`, `k2_bound` and
+`k3_bound` count both for one call of a kernel on its inputs, in the dtype
+of its rows (x and g): 2 bytes an element in bfloat16, 4 in float32; the
+weights and biases are read, and dW/db written, as float32 parameters.
 """
 
 from __future__ import annotations
@@ -15,11 +19,12 @@ import torch
 
 from .utils.helpers import linspace
 
-__all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOP_PER_S", "time_ms", "bound", "k1_bound",
+__all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOP_PER_S", "PEAK_BF16_TC_FLOP_PER_S", "time_ms", "bound", "k1_bound",
            "k2_bound", "k3_bound", "k1_inputs", "k2_inputs", "k3_inputs", "K2_CASES"]
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_TC_FLOP_PER_S = 989e12
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -46,11 +51,11 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, flop_per_s: float = PEAK_F32_FLOP_PER_S):
     """The least time (ms) for the work, and what sets it: "bytes" or
     "operations"."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = n_ops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -65,13 +70,20 @@ def k1_bound(keys, queries, values, mask):
     return bound(n_bytes, mask.sum().item() * Q * (2 * C + 10))
 
 
+def _rate(x):
+    """(bytes an element of x, peak operations a second) of x's dtype."""
+    return (2, PEAK_BF16_TC_FLOP_PER_S) if x.dtype == torch.bfloat16 else (4, PEAK_F32_FLOP_PER_S)
+
+
 def k2_bound(x, w0, b0, wh, bh, wout, bout):
     """The MLP chain forward: reads x and the weights, writes the output;
     two operations per multiply-add."""
     M, C = x.shape
     H, L1, O = w0.shape[0], wh.shape[0], wout.shape[0]
     n_in = sum(t.numel() for t in (w0, b0, wh, bh, wout, bout) if t is not None)
-    return bound(4 * (M * C + M * O + n_in), 2 * M * (C * H + L1 * H * H + H * O))
+    row_bytes, flops = _rate(x)
+    return bound(row_bytes * (M * C + M * O) + 4 * n_in,
+                 2 * M * (C * H + L1 * H * H + H * O), flops)
 
 
 def k3_bound(x, g, w0, b0, wh, bh, wout):
@@ -82,9 +94,10 @@ def k3_bound(x, g, w0, b0, wh, bh, wout):
     H, L1, O = w0.shape[0], wh.shape[0], wout.shape[0]
     n_w = H * C + L1 * H * H + O * H
     n_params = n_w + H + L1 * H + O
-    n_bytes = 4 * (2 * M * C + M * O + (n_w + H * (b0 is not None) + L1 * H * (bh is not None))
-                   + n_params)
-    return bound(n_bytes, 2 * M * (C * H + L1 * H * H) + 4 * M * n_w)
+    row_bytes, flops = _rate(x)
+    n_bytes = (row_bytes * (2 * M * C + M * O)
+               + 4 * (n_w + H * (b0 is not None) + L1 * H * (bh is not None) + n_params))
+    return bound(n_bytes, 2 * M * (C * H + L1 * H * H) + 4 * M * n_w, flops)
 
 
 def k1_inputs(B, K, Q, C, sigma, gen, empty_rows=(), path=True, max_real=None):
@@ -142,20 +155,20 @@ K2_CASES = (
 )
 
 
-def k2_inputs(M, C, H, L1, O, biases, gen, weights=None):
+def k2_inputs(M, C, H, L1, O, biases, gen, weights=None, dtype=torch.float32):
     """(x, w0, b0, wh, bh, wout, bout) of one MLP chain forward on the card:
-    random x, and the given weights or random ones scaled by their fan in
-    (biases None unless `biases`)."""
-    x = torch.randn((M, C), generator=gen, device="cuda")
+    random x in `dtype`, and the given weights or random ones scaled by their
+    fan in (biases None unless `biases`)."""
+    x = torch.randn((M, C), generator=gen, device="cuda").to(dtype)
     return (x, *(weights if weights is not None else _random_weights(C, H, L1, O, biases, gen)))
 
 
-def k3_inputs(M, C, H, L1, O, biases, gen, weights=None):
+def k3_inputs(M, C, H, L1, O, biases, gen, weights=None, dtype=torch.float32):
     """(x, g, w0, b0, wh, bh, wout) of one MLP chain backward on the card:
-    random x and g, and the given weights or random ones scaled by their fan
-    in (biases None unless `biases`)."""
-    x = torch.randn((M, C), generator=gen, device="cuda")
-    g = torch.randn((M, O), generator=gen, device="cuda")
+    random x and g in `dtype`, and the given weights or random ones scaled by
+    their fan in (biases None unless `biases`)."""
+    x = torch.randn((M, C), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((M, O), generator=gen, device="cuda").to(dtype)
     if weights is None:
         weights = _random_weights(C, H, L1, O, biases, gen, with_bout=False)
     return (x, g, *weights)

@@ -8,7 +8,10 @@ and the decoder through kernel K2 (the JAX package's `use_pallas_setconv`
 and `fused_mlp`) through their autograd Functions, so the model trains on
 either path; it changes no parameter, and on CPU tensors the kernels' plain
 versions run. `model.train()` switches the grid CNN's BatchNorm to batch
-statistics; the deterministic path has n_z = 1 in both modes.
+statistics; the deterministic path has n_z = 1 in both modes. `dtype`
+(bfloat16, or None for float32) is the compute dtype of every module but
+the SetConvs' interpolation, the grid and the positional features, which
+stay float32 as in JAX.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from torch import nn
 
 from ..ops.cnn import CNN
 from ..ops.encoders import DiscardIthArg, SinusoidalEncodings
-from ..ops.mlp import MLP
+from ..ops.mlp import MLP, dense
 from ..ops.setconv import SetConv
 from ..utils import init as winit
 from ..utils.helpers import linspace
@@ -33,8 +36,9 @@ class ConvCNP(NeuralProcessFamily):
                  cnn_n_blocks: int = 5, cnn_kernel_size: int = 19, cnn_norm: Optional[str] = "batch",
                  cnn_n_conv_layers: int = 2, cnn_norm_eps: float = 1e-3,
                  cond_dim: int = 0, cond_mode: str = "film", cond_pos_feats: int = 64,
-                 min_sigma_pred: float = 0.01, use_kernels: bool = True):
-        super().__init__(x_dim, y_dim, r_dim, min_sigma_pred, cond_dim, use_kernels)
+                 min_sigma_pred: float = 0.01, use_kernels: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(x_dim, y_dim, r_dim, min_sigma_pred, cond_dim, use_kernels, dtype)
         if x_dim != 1:
             raise ValueError("ConvCNP's induced grid is 1-D")
         if cond_dim > 0 and cond_mode != "film":
@@ -43,16 +47,16 @@ class ConvCNP(NeuralProcessFamily):
         self.induced_range = induced_range
         lo, hi = induced_range
         self.n_induced = int(density_induced * (hi - lo))
-        self.cntxt_to_induced = SetConv(y_dim, r_dim, use_kernel=use_kernels)
+        self.cntxt_to_induced = SetConv(y_dim, r_dim, use_kernel=use_kernels, dtype=dtype)
         self.induced_to_induced = CNN(r_dim, cnn_n_blocks, cnn_kernel_size, cnn_norm,
-                                      cnn_n_conv_layers, cnn_norm_eps)
-        self.induced_to_trgt = SetConv(r_dim, r_dim, use_kernel=use_kernels)
+                                      cnn_n_conv_layers, cnn_norm_eps, dtype)
+        self.induced_to_trgt = SetConv(r_dim, r_dim, use_kernel=use_kernels, dtype=dtype)
         self.decoder = DiscardIthArg(self._sub_decoder(2 * y_dim), i=0)
         if cond_dim > 0:
             self.cond_gamma = nn.Linear(r_dim, r_dim)
             self.cond_pos_enc = SinusoidalEncodings(cond_pos_feats)
             self.cond_field = MLP(cond_pos_feats + r_dim, r_dim, n_hidden_layers=2,
-                                  hidden_size=r_dim)
+                                  hidden_size=r_dim, dtype=dtype)
             self.init_params()
 
     def init_params(self, generator=None) -> None:
@@ -72,7 +76,7 @@ class ConvCNP(NeuralProcessFamily):
         feats = self.cond_pos_enc(pos)
         emb = cond_emb[:, None, :].expand(B, self.n_induced, cond_emb.shape[-1])
         field = self.cond_field(torch.cat([feats, emb], dim=-1))
-        gamma = self.cond_gamma(cond_emb)[:, None, :]
+        gamma = dense(self.cond_gamma, cond_emb, self.dtype)[:, None, :]
         return R_induced * (1.0 + gamma) + field
 
     def encode_globally(self, x_c, y_c, mask_cntxt, cond_emb=None):

@@ -4,6 +4,11 @@
 The JAX package is channel-last; `CNN` keeps that at its interface and runs
 its blocks channel-first, the layout of `torch.nn.functional.conv1d`. The
 convolutions are stock PyTorch, as the JAX package leaves them to XLA.
+
+`dtype` is the JAX modules' compute dtype: with bfloat16 every convolution
+runs as flax's `nn.Conv(dtype=bfloat16)` (`conv`), while `BatchNorm`, which
+has no dtype in JAX, normalises in float32 and returns float32, the dtype
+flax promotes a bf16 input and float32 parameters to.
 """
 
 from __future__ import annotations
@@ -11,9 +16,22 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..utils import init as winit
+
+
+def conv(layer: nn.Conv1d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """`layer(x)` as flax's `nn.Conv(dtype=dtype)` computes it. None: the
+    float32 layer as it is. Otherwise x, the kernel and the bias are cast to
+    `dtype`, the convolution is rounded to it and the bias added in it, two
+    roundings as in flax."""
+    if dtype is None:
+        return layer(x)
+    y = F.conv1d(x.to(dtype), layer.weight.to(dtype), None, layer.stride, layer.padding,
+                 layer.dilation, layer.groups)
+    return y if layer.bias is None else y + layer.bias.to(dtype)[:, None]
 
 
 class BatchNorm(nn.Module):
@@ -44,6 +62,7 @@ class BatchNorm(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         if self.training:
             mean = x.mean(dim=(0, 2))
             var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
@@ -71,8 +90,10 @@ def _depthwise(n_chan: int, kernel_size: int) -> nn.Conv1d:
 class DepthSepConv(nn.Module):
     """Depthwise conv (SAME padding) then pointwise 1x1, channel-first."""
 
-    def __init__(self, in_chan: int, out_chan: int, kernel_size: int):
+    def __init__(self, in_chan: int, out_chan: int, kernel_size: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.depthwise = _depthwise(in_chan, kernel_size)
         self.pointwise = nn.Conv1d(in_chan, out_chan, 1)
         self.init_params()
@@ -82,7 +103,7 @@ class DepthSepConv(nn.Module):
         winit.init_conv(self.pointwise, winit.kaiming_normal_fanout, generator)
 
     def forward(self, x):
-        return self.pointwise(self.depthwise(x))
+        return conv(self.pointwise, conv(self.depthwise, x, self.dtype), self.dtype)
 
 
 class ResConvBlock(nn.Module):
@@ -90,16 +111,18 @@ class ResConvBlock(nn.Module):
     [B,C,L]; the residual joins before the last pointwise conv."""
 
     def __init__(self, in_chan: int, out_chan: int, kernel_size: int = 5,
-                 norm: Optional[str] = None, n_conv_layers: int = 1, norm_eps: float = 1e-3):
+                 norm: Optional[str] = None, n_conv_layers: int = 1, norm_eps: float = 1e-3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if n_conv_layers not in (1, 2):
             raise ValueError("n_conv_layers must be 1 or 2")
         if kernel_size % 2 == 0:
             raise ValueError(f"kernel_size={kernel_size} must be odd")
         self.n_conv_layers = n_conv_layers
+        self.dtype = dtype
         if n_conv_layers == 2:
             self.norm1 = _norm(norm, in_chan, norm_eps)
-            self.conv1 = DepthSepConv(in_chan, in_chan, kernel_size)
+            self.conv1 = DepthSepConv(in_chan, in_chan, kernel_size, dtype)
         self.norm2 = _norm(norm, in_chan, norm_eps)
         self.conv2_depthwise = _depthwise(in_chan, kernel_size)
         self.conv2_pointwise = nn.Conv1d(in_chan, out_chan, 1)
@@ -113,8 +136,8 @@ class ResConvBlock(nn.Module):
         out = x
         if self.n_conv_layers == 2:
             out = self.conv1(torch.relu(self.norm1(out)))
-        out = self.conv2_depthwise(torch.relu(self.norm2(out)))
-        return self.conv2_pointwise(out + x)
+        out = conv(self.conv2_depthwise, torch.relu(self.norm2(out)), self.dtype)
+        return conv(self.conv2_pointwise, out + x, self.dtype)
 
 
 class CNN(nn.Module):
@@ -122,12 +145,13 @@ class CNN(nn.Module):
     channel-last [B, L, C]."""
 
     def __init__(self, n_channels: int, n_blocks: int = 3, kernel_size: int = 5,
-                 norm: Optional[str] = None, n_conv_layers: int = 1, norm_eps: float = 1e-3):
+                 norm: Optional[str] = None, n_conv_layers: int = 1, norm_eps: float = 1e-3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_blocks = n_blocks
         for i in range(n_blocks):
             self.add_module(f"block_{i}", ResConvBlock(
-                n_channels, n_channels, kernel_size, norm, n_conv_layers, norm_eps))
+                n_channels, n_channels, kernel_size, norm, n_conv_layers, norm_eps, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.transpose(1, 2)

@@ -1,5 +1,6 @@
-"""Argument checks shared by the kernel wrappers: the kernels take float32,
-contiguous tensors on the current CUDA device and nothing else, and are
+"""Argument checks shared by the kernel wrappers: the kernels take contiguous
+tensors of the dtype their contract names (float32, or bfloat16 where a
+kernel computes in it) on the current CUDA device and nothing else, and are
 reached where a gradient is needed only through their autograd Functions."""
 
 from __future__ import annotations
@@ -7,15 +8,17 @@ from __future__ import annotations
 import torch
 
 
-def require_cuda_f32(name: str, **tensors) -> None:
+def require_cuda(name: str, dtype: torch.dtype, **tensors) -> None:
+    """Every given tensor (None skipped) on the current CUDA device, of
+    `dtype`, contiguous."""
     device = torch.device("cuda", torch.cuda.current_device())
     for arg, t in tensors.items():
         if t is None:
             continue
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, the kernel runs on {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from ._checks import ptr, require_cuda_f32, require_no_grad, require_shape
+from ._checks import ptr, require_cuda, require_no_grad, require_shape
 
 NEG = -1e30  # logit of a masked key, as in the Pallas kernel
 MAX_CHANNELS = 512  # the wide kernel tiles channels by 128 a block; the contract stops here
@@ -49,7 +49,8 @@ def setconv_exprbf_fwd(keys, queries, values, mask, sigma, p: int = 2):
         return setconv_exprbf_plain(keys, queries, values, mask, sigma, p)
     name = "setconv_exprbf_fwd"
     require_no_grad(name, keys=keys, queries=queries, values=values, sigma=sigma)
-    require_cuda_f32(name, keys=keys, queries=queries, values=values, mask=mask, sigma=sigma)
+    require_cuda(name, torch.float32, keys=keys, queries=queries, values=values, mask=mask,
+                 sigma=sigma)
     B, K = keys.shape
     Q, C = queries.shape[1], values.shape[-1]
     require_shape(name, "queries", queries, (B, Q))

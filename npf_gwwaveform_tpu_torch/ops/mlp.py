@@ -6,15 +6,35 @@ Order: to_hidden -> relu -> (linear_i -> relu [+ residual])* -> out. With
 kernel K3 backward, their plain versions on CPU tensors; the parameters are
 the same either way. Initial values follow the JAX scheme
 (`utils/init.py`): hidden layers kaiming-uniform, `out` xavier, biases zero.
+
+`dtype` is the JAX module's compute dtype: None computes in the input's
+dtype as promoted with the float32 parameters (float32 here); bfloat16
+computes in bf16 with float32 parameters. The fused chain then runs at the
+Pallas kernel's bf16 rounding points (`compute_dtype`), and each unfused
+layer as flax's `Dense(dtype=bfloat16)` (`dense`).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..utils import init as winit
 from .kernels.mlp_chain import FusedReluMLPFn
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """`layer(x)` as flax's `nn.Dense(dtype=dtype)` computes it. None: the
+    float32 layer as it is. Otherwise x, the weight and the bias are cast to
+    `dtype`, the product is rounded to it and the bias added in it, two
+    roundings as in flax (`F.linear` with its bias would round once)."""
+    if dtype is None:
+        return layer(x)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class MLP(nn.Module):
@@ -22,7 +42,8 @@ class MLP(nn.Module):
     smaller (the reference's clamp)."""
 
     def __init__(self, input_size: int, output_size: int, hidden_size: int = 32,
-                 n_hidden_layers: int = 1, is_res: bool = False, fused: bool = False):
+                 n_hidden_layers: int = 1, is_res: bool = False, fused: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if n_hidden_layers < 1:
             raise ValueError("n_hidden_layers must be >= 1")
@@ -30,6 +51,7 @@ class MLP(nn.Module):
         self.n_hidden_layers = n_hidden_layers
         self.is_res = is_res
         self.fused = fused
+        self.dtype = dtype
         self.to_hidden = nn.Linear(input_size, hidden_size)
         for i in range(n_hidden_layers - 1):
             self.add_module(f"linear_{i}", nn.Linear(hidden_size, hidden_size))
@@ -47,18 +69,20 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         hidden = self._hidden()
         if self.fused:
+            # the Pallas entry's compute_dtype: the module's, else the input's
+            cdtype = self.dtype or x.dtype
+            w = self.to_hidden.weight
             h = self.to_hidden.out_features
-            wh = (torch.stack([l.weight for l in hidden]) if hidden
-                  else x.new_zeros((0, h, h)))
-            bh = torch.stack([l.bias for l in hidden]) if hidden else x.new_zeros((0, h))
+            wh = torch.stack([l.weight for l in hidden]) if hidden else w.new_zeros((0, h, h))
+            bh = torch.stack([l.bias for l in hidden]) if hidden else w.new_zeros((0, h))
             out = FusedReluMLPFn.apply(
-                x.reshape(-1, x.shape[-1]).contiguous(),
-                self.to_hidden.weight, self.to_hidden.bias, wh, bh,
-                self.out.weight, self.out.bias, self.is_res,
+                x.reshape(-1, x.shape[-1]).to(cdtype).contiguous(),
+                w, self.to_hidden.bias, wh, bh,
+                self.out.weight, self.out.bias, self.is_res, cdtype,
             )
             return out.reshape(*x.shape[:-1], self.out.out_features)
-        a = torch.relu(self.to_hidden(x))
+        a = torch.relu(dense(self.to_hidden, x, self.dtype))
         for layer in hidden:
-            r = torch.relu(layer(a))
+            r = torch.relu(dense(layer, a, self.dtype))
             a = r + a if self.is_res else r
-        return self.out(a)
+        return dense(self.out, a, self.dtype)

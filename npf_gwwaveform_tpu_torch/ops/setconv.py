@@ -8,6 +8,10 @@ the weights and a raw exp sum for the density. The kernel path
 `|d|` as the Pallas kernel does (the two paths differ by about 1e-12 in the
 squared distance), and the JAX package's tiled recompute backward. The
 resizer starts xavier-uniform with a zero bias, as in JAX.
+
+With `dtype` (the JAX module's compute dtype, e.g. bfloat16) the
+interpolation stays float32, as in JAX (the values are cast to float32
+before K1 or the plain ExpRBF), and only the resizer computes in `dtype`.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch import nn
 from ..utils import init as winit
 from ..utils.helpers import masked_softmax
 from .kernels.setconv import SetConvExpRBFFn
+from .mlp import dense
 
 
 def _init_length_scale(max_dist: float, max_dist_weight: float, p: int) -> float:
@@ -70,9 +75,11 @@ class SetConv(nn.Module):
     -> [B,Q,out_channels]: interpolated values plus the density channel,
     then the linear `resizer`."""
 
-    def __init__(self, in_channels: int, out_channels: int, use_kernel: bool = True):
+    def __init__(self, in_channels: int, out_channels: int, use_kernel: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.use_kernel = use_kernel
+        self.dtype = dtype
         self.rbf = ExpRBF()
         self.resizer = nn.Linear(in_channels + 1, out_channels)
         self.init_params()
@@ -98,4 +105,4 @@ class SetConv(nn.Module):
         else:
             weight, density = self.rbf(keys_x, queries_x, mask_keys)
             targets = torch.cat([torch.bmm(weight.float(), values.float()), density.float()], dim=-1)
-        return self.resizer(targets)
+        return dense(self.resizer, targets, self.dtype)

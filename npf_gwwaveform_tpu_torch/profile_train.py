@@ -1,7 +1,7 @@
 """Where the time of one train step of the flagship configuration goes on the
 card.
 
-    python -m npf_gwwaveform_tpu_torch.profile_train [--batch 32] [--reps 10]
+    python -m npf_gwwaveform_tpu_torch.profile_train [--batch 32] [--reps 10] [--bf16]
 
 Builds the flagship model from the port's init (seed 0) and takes `--reps`
 train steps to warm up, timing each on the host clock (each ends in a device
@@ -15,8 +15,7 @@ reported too. Prints the
 step's wall time, the device time, the busy share (device time over the
 traced step's wall time, and over the untraced median), the split by phase
 and the kernels with the most device time, then one JSON line with the same
-numbers.
-Writes nothing.
+numbers. `--bf16` trains in bfloat16 compute. Writes nothing.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from .configs import gw_train_summary
 from .data.gw import GWParameterSpace
 from .score import make_eval_batch, run_generator
 from .train_gw import build_trainer
+from .utils.helpers import set_numerics
 
 PHASES = ("data", "forward", "optimizer")
 SETCONV_BWD = "setconv_exprbf_bwd"  # the named range of the stock-op SetConv backward
@@ -44,13 +44,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics()
+    dtype = torch.bfloat16 if args.bf16 else None
     summary = gw_train_summary()
-    trainer = build_trainer(summary, 200_000, "cuda")
+    trainer = build_trainer(summary, 200_000, "cuda", dtype=dtype)
     gen, space = run_generator(summary), GWParameterSpace()
     g = trainer.state.generator
 
@@ -107,7 +108,7 @@ def main(argv=None) -> dict:
         print(f"  {e.self_device_time_total / 1e3:9.4f} ms  {share:6.1%}  x{e.count:<4d} "
               f"{e.key[:90]}")
         top.append(dict(name=e.key[:120], device_ms=e.self_device_time_total / 1e3, calls=e.count))
-    res = dict(batch=args.batch, wall_ms=wall_ms, traced_wall_ms=1e3 * traced_wall,
+    res = dict(bf16=args.bf16, batch=args.batch, wall_ms=wall_ms, traced_wall_ms=1e3 * traced_wall,
                device_ms=device_ms, busy_share=device_ms / (1e3 * traced_wall),
                busy_share_untraced=device_ms / wall_ms,
                phases_device_ms=phases, n_kernels=len(kernels), top=top)

@@ -10,9 +10,11 @@ conditions on the normalised parameters, and records per waveform the NPML
 log-likelihood and the white-noise mismatch of the predictive mean.
 
     python -m npf_gwwaveform_tpu_torch.score --run-dir DIR [--n-test N]
-        [--thetas-from-run | --thetas-from RUN_DIR] [--device cuda]
+        [--thetas-from-run | --thetas-from RUN_DIR] [--device cuda] [--bf16]
 
-prints one JSON line and writes nothing. `--thetas-from-run` scores the
+prints one JSON line and writes nothing. `--bf16` scores in bfloat16 compute
+(the run's float32 parameters, every module in bf16 as `reproduce_gw.py
+--bf16` builds it; log-likelihoods and mismatches stay float32). `--thetas-from-run` scores the
 parameters recorded in the run's `mismatch_theta.csv`, in order;
 `--thetas-from RUN_DIR` those recorded in another run's, so that a retrained
 model is scored on the waveforms a recorded run was scored on.
@@ -37,7 +39,7 @@ from .data.gw import GWParameterSpace, GWWaveformGenerator, mismatch
 from .losses import CNPFLoss
 from .models.convnp import ConvCNP
 from .training.checkpoint import load_run_params, params_from_flax
-from .utils.helpers import linspace
+from .utils.helpers import linspace, set_numerics
 
 EVAL_BATCH = 256
 SAMPLE_RATE = 1024.0  # experiments/reproduce_gw.py builds its generator at 1024 Hz
@@ -46,11 +48,13 @@ __all__ = ["load_model", "read_run_thetas", "run_generator", "make_eval_batch", 
            "score_batch", "score_run", "summary_metrics", "write_scores"]
 
 
-def load_model(run_dir: str, device="cuda", use_kernels: bool = True) -> ConvCNP:
-    """The run's model with its trained weights, in eval mode on `device`."""
+def load_model(run_dir: str, device="cuda", use_kernels: bool = True,
+               dtype: Optional[torch.dtype] = None) -> ConvCNP:
+    """The run's model with its trained weights, in eval mode on `device`,
+    computing in `dtype` (None: float32)."""
     with open(os.path.join(run_dir, "summary.json")) as f:
         summary = json.load(f)
-    model = gw_model_from_summary(summary, use_kernels=use_kernels)
+    model = gw_model_from_summary(summary, use_kernels=use_kernels, dtype=dtype)
     model.load_state_dict(params_from_flax(*load_run_params(run_dir)), strict=True)
     return model.to(device).eval()
 
@@ -122,16 +126,17 @@ def summary_metrics(ll: np.ndarray, mm: np.ndarray, mm_zdraw: np.ndarray) -> dic
 
 
 def score_run(run_dir: str, n_test: int = 2048, thetas_from: Optional[str] = None,
-              device="cuda", seed: int = 0, use_kernels: bool = True) -> dict:
+              device="cuda", seed: int = 0, use_kernels: bool = True,
+              dtype: Optional[torch.dtype] = None) -> dict:
     """Score `n_test` waveforms of the run, on thetas drawn from `seed`, or
     on those recorded in the `mismatch_theta.csv` of the run directory
-    `thetas_from` (`run_dir` itself included). Returns `summary_metrics`,
+    `thetas_from` (`run_dir` itself included), in compute `dtype`. Returns `summary_metrics`,
     the short names `mean_ll` and `median_mismatch`, and the per-waveform
     arrays `ll`, `mismatch`, `mismatch_zdraw` and `theta` [n, 4]."""
     device = torch.device(device)
     with open(os.path.join(run_dir, "summary.json")) as f:
         summary = json.load(f)
-    model = load_model(run_dir, device, use_kernels)
+    model = load_model(run_dir, device, use_kernels, dtype)
     gen, space = run_generator(summary), GWParameterSpace()
     n_points = summary.get("n_points", 256)
     splitter = eval_splitter(summary["n_context"])
@@ -195,11 +200,12 @@ def main(argv=None) -> dict:
     thetas.add_argument("--thetas-from", default=None, metavar="RUN_DIR")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = ap.parse_args(argv)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_numerics()
     res = score_run(args.run_dir, args.n_test,
                     args.run_dir if args.thetas_from_run else args.thetas_from, args.device,
-                    args.seed)
+                    args.seed, dtype=torch.bfloat16 if args.bf16 else None)
     res = {k: v for k, v in res.items() if not isinstance(v, np.ndarray)}
     print(json.dumps(res))
     return res

@@ -6,6 +6,7 @@ flat CNN).
     python -m npf_gwwaveform_tpu_torch.train_gw [--steps N] [--batch 32]
         [--lr 1e-3] [--decay-lr 10] [--seed 0] [--device cuda]
         [--out runs_torch/] [--run 0] [--n-test 2048] [--thetas-from RUN_DIR]
+        [--bf16]
 
 Each step draws `--batch` waveforms on the device (the scorer's generator
 and stride: 1024 Hz over 1 s, every 4th sample), splits them with one context
@@ -21,8 +22,11 @@ step, mean train loss of the last 50 steps), `params.msgpack` and
 `mismatch_theta.csv`, so that a run's recorded scores are on the waveforms a
 run it is compared with was scored on) and `score.write_scores` adds `eval.csv`,
 `mismatch_theta.csv` and the scores to the summary, which is printed as one
-JSON line. Float32 throughout: TF32 is off for matmuls and cuDNN
-convolutions.
+JSON line. Float32 by default, with TF32 off for matmuls and cuDNN
+convolutions; `--bf16` trains and scores in bfloat16 compute, as
+`reproduce_gw.py --bf16` does (every module in bf16; the parameters, the
+BatchNorm statistics, Adam's state, the loss and the run files stay float32,
+and the summary has the same keys).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from .training.checkpoint import save_run_params
 from .training.state import count_parameters
 from .training.optim import make_optimizer
 from .training.trainer import Trainer
+from .utils.helpers import set_numerics
 from .utils.init import init_module
 
 HISTORY_EVERY = 50  # steps per history entry, as reproduce_gw.py's chunks
@@ -52,12 +57,14 @@ __all__ = ["build_trainer", "train", "write_run", "run", "main"]
 
 
 def build_trainer(summary: dict, steps: int, device, lr: float = 1e-3, decay_lr: float = 10.0,
-                  seed: int = 0, use_kernels: bool = True) -> Trainer:
-    """The run's model drawn from the JAX init schemes with a generator
-    seeded `seed`, on `device`, with its optimizer and the training
-    splitter; the trainer's own generator is seeded `seed` too."""
+                  seed: int = 0, use_kernels: bool = True,
+                  dtype: Optional[torch.dtype] = None) -> Trainer:
+    """The run's model in compute `dtype` (None: float32) drawn from the JAX
+    init schemes with a generator seeded `seed`, on `device`, with its
+    optimizer and the training splitter; the trainer's own generator is
+    seeded `seed` too."""
     device = torch.device(device)
-    model = gw_model_from_summary(summary, use_kernels=use_kernels)
+    model = gw_model_from_summary(summary, use_kernels=use_kernels, dtype=dtype)
     init_module(model, torch.Generator().manual_seed(seed))
     model.to(device)
     optimizer = make_optimizer(model.parameters(), lr=lr, decay_lr=decay_lr,
@@ -115,12 +122,13 @@ def write_run(run_dir: str, model: torch.nn.Module, summary: dict, history: list
 
 def run(steps: int, batch: int = 32, lr: float = 1e-3, decay_lr: float = 10.0, seed: int = 0,
         device="cuda", out: str = "runs_torch/", run_index: int = 0,
-        n_test: int = 2048, thetas_from: Optional[str] = None) -> tuple:
-    """Train the flagship configuration, write its run directory and score
-    it (on `thetas_from`'s recorded thetas when given). -> (run_dir, summary
-    with the scores)."""
+        n_test: int = 2048, thetas_from: Optional[str] = None,
+        dtype: Optional[torch.dtype] = None) -> tuple:
+    """Train the flagship configuration in compute `dtype`, write its run
+    directory and score it in that dtype (on `thetas_from`'s recorded thetas
+    when given). -> (run_dir, summary with the scores)."""
     summary = gw_train_summary()
-    trainer = build_trainer(summary, steps, device, lr, decay_lr, seed)
+    trainer = build_trainer(summary, steps, device, lr, decay_lr, seed, dtype=dtype)
     history, _, seconds, _ = train(trainer, summary, steps, batch)
     summary.update(steps=steps, batch=batch, train_wf_per_sec=steps * batch / seconds)
     if lr != 1e-3:
@@ -130,7 +138,8 @@ def run(steps: int, batch: int = 32, lr: float = 1e-3, decay_lr: float = 10.0, s
 
     run_dir = os.path.join(out, run_tag(summary), summary["model"], f"run_{run_index}")
     write_run(run_dir, trainer.model, summary, history)
-    scores = score_run(run_dir, n_test, device=device, seed=seed, thetas_from=thetas_from)
+    scores = score_run(run_dir, n_test, device=device, seed=seed, thetas_from=thetas_from,
+                       dtype=dtype)
     return run_dir, write_scores(run_dir, scores)
 
 
@@ -146,11 +155,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--run", type=int, default=0)
     ap.add_argument("--n-test", type=int, default=2048)
     ap.add_argument("--thetas-from", default=None, metavar="RUN_DIR")
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = ap.parse_args(argv)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics()
     run_dir, summary = run(args.steps, args.batch, args.lr, args.decay_lr, args.seed, args.device,
-                           args.out, args.run, args.n_test, args.thetas_from)
+                           args.out, args.run, args.n_test, args.thetas_from,
+                           torch.bfloat16 if args.bf16 else None)
     print(json.dumps({"run_dir": run_dir, **summary}))
     return summary
 

@@ -50,3 +50,13 @@ def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
     stop_t = torch.tensor(stop, dtype=torch.float32, device=device)
     out = start_t * (1 - step) + stop_t * step
     return torch.cat([out, stop_t.reshape(1)])
+
+
+def set_numerics() -> None:
+    """Products on the card as the JAX package computes them: float32 matmuls
+    and convolutions without TF32, and bf16 matmuls summed in f32 (cuBLAS may
+    otherwise reduce them in reduced precision; JAX asks for f32
+    accumulation)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

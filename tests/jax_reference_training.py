@@ -3,13 +3,19 @@ comparing the port's early training loss with the reference's. Not a test:
 run it by hand on the CPU.
 
     JAX_PLATFORMS=cpu python tests/jax_reference_training.py [--seed 0] [--steps 500]
+        [--bf16 [--fused-mlp]]
 
 It builds what `experiments/reproduce_gw.py --cond --cond-mode film
 --n-context 192 --density 128` trains (model, splitter, optimizer and
 `make_batch`, batch 32, state from `create_train_state(seed=...)`), takes one
 jitted train step at a time with data keys split from PRNGKey(0), and prints
 the median loss of every 10 steps, then the medians over steps 1-50 and
-251-500 as one JSON line.
+251-500 as one JSON line. `--bf16` builds every module in bfloat16 compute,
+as `reproduce_gw.py --bf16` does; `--fused-mlp` adds the decoder's fused
+MLP-chain kernel (Pallas, interpret mode on the CPU), the model the port's
+kernel path matches. Run bf16 with
+`XLA_FLAGS=--xla_allow_excess_precision=false` for the op-by-op rounding the
+port follows (tests/test_torch_bf16_slice.py).
 """
 
 import argparse
@@ -34,11 +40,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=500)
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--fused-mlp", action="store_true")
     args = ap.parse_args()
     batch, n_points = 32, 256
     gen, space = GWWaveformGenerator(duration=1.0, sample_rate=1024.0), GWParameterSpace()
-    model = gp_model_1d("ConvCNP", cnn_norm_eps=1e-3).clone(
-        y_dim=1, cond_dim=4, cond_mode="film", density_induced=128)
+    dtype = jnp.bfloat16 if args.bf16 else None
+    model = gp_model_1d("ConvCNP", dtype=dtype, cnn_norm_eps=1e-3).clone(
+        y_dim=1, cond_dim=4, cond_mode="film", density_induced=128, fused_mlp=args.fused_mlp)
     splitter = CntxtTrgtSplitter(contexts_getter=GetRandomIndcs(a=0.0, b=192),
                                  targets_getter=get_all_indcs)
     tx = make_optimizer(lr=1e-3, decay_lr=10.0, max_epochs=200_000 // 1562,
@@ -70,7 +79,8 @@ def main() -> None:
         losses.append(float(loss))
         if (i + 1) % 10 == 0:
             print(f"{i + 1} median of the last 10: {np.median(losses[-10:]):.1f}", flush=True)
-    print(json.dumps(dict(seed=args.seed, steps=args.steps,
+    print(json.dumps(dict(seed=args.seed, steps=args.steps, bf16=args.bf16,
+                          fused_mlp=args.fused_mlp,
                           median_1_50=float(np.median(losses[:50])),
                           median_251_500=float(np.median(losses[250:500])))))
 

@@ -253,7 +253,10 @@ def test_setconv_function_backward_tiles_queries():
     keys, queries, values, mask, sigma = _setconv_inputs(7, 2, 30, 700, 3, sigma=0.2)
     args = [torch.from_numpy(a) for a in (keys, queries, values)]
     m, s = torch.from_numpy(mask.astype(np.float32)), torch.tensor([sigma])
-    g_sig, g_den = torch.randn(2, 700, 3), torch.randn(2, 700)
+    # cotangents from their own generator, not the global one, whose state
+    # depends on the tests that ran before in the same process
+    gen = torch.Generator().manual_seed(7)
+    g_sig, g_den = torch.randn(2, 700, 3, generator=gen), torch.randn(2, 700, generator=gen)
     grads = []
     for fn in (lambda *a: SetConvExpRBFFn.apply(*a[:3], m, a[3], 2),
                lambda *a: setconv_exprbf_plain(*a[:3], m, a[3])):
