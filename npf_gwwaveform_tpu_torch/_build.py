@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels with one nvcc call and load them with ctypes.
 
-Every `csrc/*.cu` file (with the `csrc/*.cuh` headers they include) is
+Every `csrc/*.cu` file (with the `csrc/*.cuh` and `*.h` headers they include) is
 compiled by a single `nvcc` invocation into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds). The library lands
 in the git-ignored `build/` directory of this package, named by a hash of the
@@ -52,6 +52,9 @@ _SIGNATURES = {
     "npf_mlp_chain_fwd_bf16_smem": [_I, _I, _I, _I],
     # M, C, H, L1, O -> bytes of scratch (-1: widths too large)
     "npf_mlp_chain_bwd_bf16_scratch": [_I, _I, _I, _I, _I],
+    # M, C, H, L1, O -> the kernel the launcher takes: 1 tensor cores, 2 f32 FMA, -1 refused
+    "npf_mlp_chain_fwd_bf16_path": [_I, _I, _I, _I, _I],
+    "npf_mlp_chain_bwd_bf16_path": [_I, _I, _I, _I, _I],
     "npf_mlp_chain_bwd_bf16": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P,
                                _P],
 }
@@ -75,6 +78,10 @@ def sources(csrc_dir: str = CSRC_DIR) -> list:
     return sorted(glob.glob(os.path.join(csrc_dir, "*.cu")))
 
 
+def headers(csrc_dir: str = CSRC_DIR) -> list:
+    return sorted(glob.glob(os.path.join(csrc_dir, "*.cuh")) + glob.glob(os.path.join(csrc_dir, "*.h")))
+
+
 def _nvcc() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -89,7 +96,7 @@ def library_path(csrc_dir: str = CSRC_DIR) -> str:
     """Where the library of `csrc_dir` is built: named by a hash of the nvcc
     flags and of every source and header, so that any edit rebuilds it."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources(csrc_dir) + sorted(glob.glob(os.path.join(csrc_dir, "*.cuh"))):
+    for s in sources(csrc_dir) + headers(csrc_dir):
         with open(s, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"libnpf_kernels_{digest.hexdigest()[:16]}.so")

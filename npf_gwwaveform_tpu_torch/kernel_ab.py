@@ -1,8 +1,8 @@
-"""Two builds of the SetConv forward (K1), MLP-chain forward (K2) and
-MLP-chain backward (K3) kernels, timed in turns in one process on one card:
-the sources in the package's `csrc/` against those of another directory with
-the same C entry points (an earlier commit's `csrc/`, unpacked with `git show`
-or `git archive`).
+"""Two builds of the port's kernels (K1, the SetConv forward; K2 and K3,
+the MLP-chain forward and backward, in float32 and in bfloat16), timed in
+turns in one process on one card: the sources in the package's `csrc/`
+against those of another directory with the same C entry points (an earlier
+commit's `csrc/`, unpacked with `git show` or `git archive`).
 
     python -m npf_gwwaveform_tpu_torch.kernel_ab --old-csrc DIR [--reps 20]
         [--out kernel_ab.json]
@@ -10,20 +10,20 @@ or `git archive`).
 Both libraries are built with `nvcc -Xptxas -v`; each kernel's registers,
 shared memory and spills are printed. At each shape of the flagship paths
 (K1 context->grid and grid->targets at batch 32 and 256, with the paths'
-masks; K2 and K3 at M = 8,192 and 65,536 with the flagship run's decoder
-weights) and at K2's other cases in `chip_smoke.py` (`K2_CASES`), both
-builds are driven through the port's own wrappers (`_build.using` routes
-their launches to one build or the other), checked against the plain
-PyTorch version, for identical bits over two launches and for identical
-bits between the two builds, then timed over `--reps` launches in the order
-old, new, new, old (`kernel_measure.time_ms`: each run of launches is
-captured in a CUDA graph and replayed, so the host's launch overhead is not
-counted). Bounds are `kernel_measure`'s, as in `chip_smoke.py`. The
-bfloat16 kernels (K2-bf16, K3-bf16) are timed in the new build alone at the
-decoder shapes (an earlier build may lack them), checked against their plain
-versions (identical bits for K2-bf16's output and K3-bf16's dx) and for
-identical bits over two launches. Prints one JSON line (also written to
-`--out`) with each case's times, bound and errors, and the card's name and
+masks; K2, K3, K2-bf16 and K3-bf16 at M = 8,192 and 65,536 with the flagship
+run's decoder weights) and at K2's other cases in `chip_smoke.py`
+(`K2_CASES`), both builds are driven through the port's own wrappers
+(`_build.using` routes their launches to one build or the other), checked
+against the plain PyTorch version, for identical bits over two launches and
+between the two builds, then timed over `--reps` launches in the order old,
+new, new, old (`kernel_measure.time_ms`: each run of launches is captured in
+a CUDA graph and replayed, so the host's launch overhead is not counted;
+L2 is warm). The float32 kernels are expected to give the same bits in both
+builds; the bfloat16 kernels are held, in each build, to the bars of
+`kernel_measure.py` against their plain versions (`*_within_bars`), and the
+bf16 cuBLAS layer chain is timed beside them (`cublas_chain_ms`). Bounds are
+`kernel_measure`'s, as in `chip_smoke.py`. Prints one JSON line (also written
+to `--out`) with each case's times, bound and errors, and the card's name and
 power limit.
 """
 
@@ -39,7 +39,8 @@ import torch
 
 from . import _build
 from .kernel_measure import (
-    K2_CASES, k1_bound, k1_inputs, k2_bound, k2_inputs, k3_bound, k3_inputs, time_ms,
+    K2_CASES, cublas_chain_ms, k1_bound, k1_inputs, k2_bf16_ok, k2_bf16_report, k2_bound,
+    k2_inputs, k3_bf16_ok, k3_bf16_report, k3_bound, k3_inputs, time_ms,
 )
 from .ops.kernels.mlp_chain import (
     fused_relu_mlp, fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain, fused_relu_mlp_plain,
@@ -75,22 +76,18 @@ def ab_case(libs, row, call, ref, err_fields, bound, reps):
     return row, t
 
 
-def bf16_case(lib, row, call, ref, bound, reps):
-    """The new build's bf16 kernel on one case: whether its rounded output
-    (K2-bf16's out, K3-bf16's dx) has the plain version's bits, the largest
-    relative error of the rest (K3-bf16's dW/db), whether two launches give
-    the same bits, and two device times."""
-    with _build.using(lib):
-        out, again = call(), call()
-        row["rounded_equal_plain"] = torch.equal(out[0], ref[0])
-        row["f32_rel_err"] = max((((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-                                  for a, b in zip(out[1:], ref[1:]) if b.numel()), default=0.0)
-        row["repeat_identical"] = all(torch.equal(a, b) for a, b in zip(out, again))
-        t = [time_ms(call, reps) for _ in range(2)]
-    row["new_ms"], row["new_ms_each"] = sum(t) / 2, t
-    row["bound_ms"], row["bound_by"] = bound
-    row["new_bound_share"] = row["bound_ms"] / row["new_ms"]
-    return row
+def k2_bf16_errs(args):
+    """K2-bf16's bars (kernel_measure.py) on the inputs `args`."""
+    def errs(out, ref):
+        rel, share = k2_bf16_report(out[0], *args)
+        return dict(max_rel_sum=rel, share_differing=share, within_bars=k2_bf16_ok((rel, share)),
+                    plain_identical=torch.equal(out[0], ref[0]))
+    return errs
+
+
+def k3_bf16_errs(out, ref):
+    rep = k3_bf16_report(out, ref)
+    return dict(**rep, within_bars=k3_bf16_ok(rep), dx_plain_identical=torch.equal(out[0], ref[0]))
 
 
 def k1_errs(out, ref):
@@ -184,18 +181,24 @@ def main(argv=None) -> dict:
                 libs, dict(kernel="K2", shape=name, M=M, C=C, H=H, L1=L1, O=O, is_res=is_res),
                 lambda: (fused_relu_mlp(*a2, is_res=is_res),),
                 (fused_relu_mlp_plain(*a2, is_res=is_res),), k2_errs, k2_bound(*a2), args.reps))
-        bf16_rows = []
         for M in (8192, 65536):
             a2 = k2_inputs(M, 128, 128, 3, 2, True, gen, weights, BF16)
-            bf16_rows.append(bf16_case(
-                libs["new"], dict(kernel="K2-bf16", shape=f"M={M}", M=M),
-                lambda: (fused_relu_mlp(*a2, compute_dtype=BF16),),
-                (fused_relu_mlp_plain(*a2, compute_dtype=BF16),), k2_bound(*a2), args.reps))
+            row, t = ab_case(libs, dict(kernel="K2-bf16", shape=f"M={M}", M=M),
+                             lambda: (fused_relu_mlp(*a2, compute_dtype=BF16),),
+                             (fused_relu_mlp_plain(*a2, compute_dtype=BF16),), k2_bf16_errs(a2),
+                             k2_bound(*a2), args.reps)
+            row["new_path"] = libs["new"].npf_mlp_chain_fwd_bf16_path(M, 128, 128, 3, 2)
+            row["cublas_chain_ms"] = cublas_chain_ms(*a2)
+            rows.append((row, t))
             a3 = k3_inputs(M, 128, 128, 3, 2, True, gen, weights[:5], BF16)
-            bf16_rows.append(bf16_case(
-                libs["new"], dict(kernel="K3-bf16", shape=f"M={M}", M=M),
-                lambda: fused_relu_mlp_bwd(*a3, compute_dtype=BF16),
-                fused_relu_mlp_bwd_plain(*a3, compute_dtype=BF16), k3_bound(*a3), args.reps))
+            row, t = ab_case(libs, dict(kernel="K3-bf16", shape=f"M={M}", M=M),
+                             lambda: fused_relu_mlp_bwd(*a3, compute_dtype=BF16),
+                             fused_relu_mlp_bwd_plain(*a3, compute_dtype=BF16), k3_bf16_errs,
+                             k3_bound(*a3), args.reps)
+            row["new_path"] = libs["new"].npf_mlp_chain_bwd_bf16_path(M, 128, 128, 3, 2)
+            x, g, w0, b0, wh, bh, wout = a3
+            row["cublas_chain_ms"] = cublas_chain_ms(x, w0, b0, wh, bh, wout, g=g)
+            rows.append((row, t))
     cases = []
     for row, t in rows:
         for tag in ("old", "new"):
@@ -205,17 +208,14 @@ def main(argv=None) -> dict:
         row["speedup"] = row["old_ms"] / row["new_ms"]
         print(json.dumps(row))
         cases.append(row)
-    for row in bf16_rows:
-        print(json.dumps(row))
-    res = dict(card=smi, ptxas=ptxas, cases=cases, bf16_cases=bf16_rows)
+    res = dict(card=smi, ptxas=ptxas, cases=cases)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
-    print(json.dumps(dict(card=smi, cases=[{k: r.get(k) for k in ("kernel", "shape", "old_ms",
-                                                                   "new_ms", "bound_ms", "speedup",
-                                                                   "builds_identical")}
-                                           for r in cases + bf16_rows])))
+    print(json.dumps(dict(card=smi, cases=[{k: r.get(k) for k in (
+        "kernel", "shape", "old_ms", "new_ms", "bound_ms", "cublas_chain_ms", "speedup",
+        "builds_identical", "old_within_bars", "new_within_bars")} for r in cases])))
     return res
 
 

@@ -2,6 +2,12 @@
 the card: device time, the least time a kernel's work could take, and the
 inputs of the kernels' cases.
 
+The bars of the bfloat16 kernels against their plain versions
+(`k2_bf16_report`, `k3_bf16_report`) and the bf16 cuBLAS layer chain, a
+yardstick of speed that the port never calls (`cublas_chain_ms`), are here
+too, so that `chip_smoke.py`, `kernel_ab` and the CPU tests hold the kernels
+to the same numbers.
+
 `bound` is the larger of two times: the bytes that the function must move
 (each input read once, each output written once) over the card's memory
 rate, and the operations that it does over the card's peak rate for their
@@ -16,11 +22,16 @@ weights and biases are read, and dW/db written, as float32 parameters.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from .ops.kernels.mlp_chain import _bf16_forward
 from .utils.helpers import linspace
 
-__all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOP_PER_S", "PEAK_BF16_TC_FLOP_PER_S", "time_ms", "bound", "k1_bound",
-           "k2_bound", "k3_bound", "k1_inputs", "k2_inputs", "k3_inputs", "K2_CASES"]
+__all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOP_PER_S", "PEAK_BF16_TC_FLOP_PER_S", "time_ms", "bound",
+           "k1_bound", "k2_bound", "k3_bound", "k1_inputs", "k2_inputs", "k3_inputs", "K2_CASES",
+           "K2_BF16_SUM_TOL", "K2_BF16_MAX_SHARE", "K3_BF16_DX_ULPS", "K3_BF16_DX_SHARE",
+           "K3_BF16_DW_RTOL", "bf16_ulp", "ulp_report", "k2_bf16_sum_scale", "k2_bf16_compare",
+           "k2_bf16_report", "k2_bf16_ok", "k3_bf16_report", "k3_bf16_ok", "cublas_chain_ms"]
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -172,3 +183,127 @@ def k3_inputs(M, C, H, L1, O, biases, gen, weights=None, dtype=torch.float32):
     if weights is None:
         weights = _random_weights(C, H, L1, O, biases, gen, with_bout=False)
     return (x, g, *weights)
+
+
+# The bfloat16 kernels against their plain versions. The tensor cores add
+# the same exact bf16 products as the plain version (`_matmul_seq`, feature
+# by feature), in another order (csrc/mlp_chain_bf16.cuh), so a sum that lies
+# at a bf16 rounding boundary rounds one ulp the other way, and a hidden
+# unit that moves carries the move to the later layers.
+#
+# K2-bf16: every output element within 2^-6 s of the plain version's, s its
+# absolute product sum |a_L1| |wout|^T + |bout| from the plain version's last
+# activations (bf16 weights): two bf16 ulps of the largest sum the element
+# could round from, room for a one-ulp move in the hidden units and one in
+# the final rounding. At most 1% of the elements may differ. A scale of the
+# element's own magnitude or of its row's largest would be loose for the
+# small `loc` beside a large raw scale in the same row, or tight where the
+# output cancels to near zero; the absolute sum is neither.
+K2_BF16_SUM_TOL, K2_BF16_MAX_SHARE = 2.0 ** -6, 0.01
+# K3-bf16: dx within two bf16 ulps of its row's largest magnitude, at most
+# 2% of its elements differing (a moved rounding in a g feeds every element
+# of the row, and an element whose sum cancels moves by many of its own
+# ulps); dW/db within 1e-2 of each gradient's max magnitude (f32 row sums of
+# rounded activations and masked gradients, each of which may sit one ulp,
+# 2^-8 of itself, apart). The bars the plain version meets against the JAX
+# package's Pallas kernel (tests/test_torch_bf16_kernels.py).
+K3_BF16_DX_ULPS, K3_BF16_DX_SHARE, K3_BF16_DW_RTOL = 2, 0.02, 1e-2
+_K3_NAMES = ("dx", "dw0", "db0", "dwh", "dbh", "dwout", "dbout")
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at |v|: 2^(e - 7) for |v| in [2^e, 2^(e+1))."""
+    e = torch.floor(torch.log2(v.abs().clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.exp2(e - 7)
+
+
+def ulp_report(a, b, per_row=False):
+    """(largest |a - b| in bf16 ulps of the larger magnitude, or of the row's
+    largest with `per_row`; share of elements that differ)."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    if not diff.numel():
+        return 0.0, 0.0
+    scale = torch.maximum(a.abs(), b.abs())
+    if per_row:
+        scale = scale.amax(dim=-1, keepdim=True)
+    return (diff / bf16_ulp(scale)).max().item(), (diff > 0).float().mean().item()
+
+
+def k2_bf16_sum_scale(a_last, wout, bout):
+    """s = |a_L1| |wout|^T + |bout|, each element's absolute product sum,
+    with the weights rounded to bf16 as the kernel uses them."""
+    s = a_last.float().abs() @ wout.to(torch.bfloat16).float().abs().t()
+    return s if bout is None else s + bout.to(torch.bfloat16).float().abs()
+
+
+def k2_bf16_compare(out, ref, s):
+    """(largest |out - ref| / s, the share of elements that differ)."""
+    diff = (out.float() - ref.float()).abs()
+    if not diff.numel():
+        return 0.0, 0.0
+    rel = torch.where(diff > 0, diff / s.to(diff.device).clamp_min(torch.finfo(torch.float32).tiny),
+                      torch.zeros_like(diff))
+    return rel.max().item(), (diff > 0).float().mean().item()
+
+
+def k2_bf16_report(out, x, w0, b0, wh, bh, wout, bout, is_res=False):
+    """K2-bf16's output against the plain version on the same inputs:
+    `k2_bf16_compare` with s from the plain version's last activations."""
+    ref, acts, _ = _bf16_forward(x, w0, b0, wh, bh, wout, bout, is_res)
+    return k2_bf16_compare(out, ref, k2_bf16_sum_scale(acts[-1], wout, bout))
+
+
+def k2_bf16_ok(report) -> bool:
+    rel, share = report
+    return rel <= K2_BF16_SUM_TOL and share <= K2_BF16_MAX_SHARE
+
+
+def k3_bf16_report(out, ref):
+    """K3-bf16's (dx, dw0, db0, dwh, dbh, dwout, dbout) against the plain
+    version's -> dict: dx_ulps (of its row's largest magnitude), dx_share
+    (differing), dw_rel (the worst dW/db error over its max magnitude) and
+    dw_worst (its name)."""
+    ulps, share = ulp_report(out[0], ref[0], per_row=True)
+    rel = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+           for n, a, b in zip(_K3_NAMES[1:], out[1:], ref[1:]) if b.numel()}
+    worst = max(rel, key=rel.get)
+    return dict(dx_ulps=ulps, dx_share=share, dw_rel=rel[worst], dw_worst=worst)
+
+
+def k3_bf16_ok(report) -> bool:
+    return (report["dx_ulps"] <= K3_BF16_DX_ULPS and report["dx_share"] <= K3_BF16_DX_SHARE
+            and report["dw_rel"] <= K3_BF16_DW_RTOL)
+
+
+def _chain(x, w0, b0, whs, bhs, wout, bout, is_res):
+    a = torch.relu(F.linear(x, w0, b0))
+    for w, b in zip(whs, bhs):
+        r = torch.relu(F.linear(a, w, b))
+        a = r + a if is_res else r
+    return F.linear(a, wout, bout)
+
+
+def cublas_chain_ms(x, w0, b0, wh, bh, wout, bout=None, is_res=False, g=None, reps=20):
+    """Device ms of the bf16 layer chain on cuBLAS, the yardstick of the bf16
+    kernels (the port never calls it): `F.linear` in bf16 with the ReLU and
+    the residual, each layer's weights pre-cast to separate bf16 tensors
+    (not timed); with the cotangent `g`, the forward and its autograd
+    backward to dx and every weight and bias gradient (K3-bf16's work),
+    else the forward alone (K2-bf16's). `time_ms`'s CUDA-graph replay."""
+    def cast(t):
+        return None if t is None else t.detach().to(torch.bfloat16).clone()
+
+    with torch.inference_mode(False), torch.enable_grad():
+        x, w0, b0, wout, bout = (cast(t) for t in (x, w0, b0, wout, bout))
+        whs = [cast(w) for w in wh]
+        bhs = [None] * len(whs) if bh is None else [cast(b) for b in bh]
+        if g is None:
+            with torch.no_grad():
+                return time_ms(lambda: _chain(x, w0, b0, whs, bhs, wout, bout, is_res), reps)
+        leaves = [t for t in (x, w0, b0, *whs, *bhs, wout) if t is not None]
+        for t in leaves:
+            t.requires_grad_()
+        g = cast(g)
+        return time_ms(lambda: torch.autograd.grad(
+            _chain(x, w0, b0, whs, bhs, wout, bout, is_res), leaves, g), reps)

@@ -20,9 +20,15 @@ bf16 (`:121-123`, `:131-133`), adds the residual gradient in bf16 (`:134`),
 returns dx in bf16 (`:140-142`) and sums dW/db in f32 (`:117-139`). The
 weights and biases stay float32 parameters; the kernels round them as they
 read them. The plain bf16 versions sum every product feature by feature in
-order (`_matmul_seq`), as the bf16 kernels do, so a kernel and its plain
-version give the same bits for out, dx and every layer's rounded g; only the
-row sums dW/db are taken in another order.
+order (`_matmul_seq`); the bf16 kernels sum on the tensor cores in k-groups of
+16, another order, and sum again in the plain order only the outputs whose
+rounding their sum leaves undecided (csrc/mlp_chain_bf16.cuh). A kernel is
+held to its plain version by the bars of `kernel_measure.py`, which admit any
+order of the sums (tests/test_torch_bf16_order.py): K2-bf16's output within
+2^-6 of each element's absolute product sum, at most 1% of the elements
+differing; K3-bf16's dx within two bf16 ulps of its row's largest magnitude,
+at most 2% differing, and dW/db within 1e-2 of each one's max magnitude. Two
+launches of a kernel on the same inputs give the same bits.
 """
 
 from __future__ import annotations
@@ -64,7 +70,8 @@ def _check_chain(name: str, tensors: dict, compute_dtype=torch.float32):
 def _matmul_seq(a, b):
     """a [M,K] @ b [K,N] in f32 from bf16-valued operands, summed over k in
     order 0..K-1: each product of two bf16 values is exact in f32, so every
-    step is the bf16 kernels' f32 FMA and the result is theirs bit for bit."""
+    step is one f32 FMA, the order the bf16 kernels fall back to where their
+    tensor-core sums leave a rounding undecided."""
     a, b = a.float(), b.float()
     acc = a.new_zeros((a.shape[0], b.shape[1]))
     for k in range(b.shape[0]):

@@ -21,7 +21,10 @@ Tolerances, each with its reason:
   sit one ulp (2^-8 of itself) apart where its sum lay at a rounding boundary
   (measured: 3.1e-3 worst, dwout of the ragged residual chain).
 - `_matmul_seq` against a numpy loop that adds the exact products feature
-  by feature in float32: identical bits (the bf16 kernels' order).
+  by feature in float32: identical bits (the order in which the bf16 kernels
+  sum again where their tensor-core sums leave a rounding undecided).
+The bars that hold the bf16 kernels to these plain versions are in
+`kernel_measure.py` and are tested in tests/test_torch_bf16_order.py.
 The bf16 bounds of `kernel_measure` are checked at the decoder's shapes.
 """
 

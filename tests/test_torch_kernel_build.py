@@ -1,14 +1,18 @@
 """What surrounds the hand-written kernels and can be checked without a card:
-the build's naming (every source and header edit rebuilds), the scorer's
+the build's naming (every source and header edit rebuilds), the C entry
+points' bindings, the bfloat16 chain kernels' launch plans (host C++ in
+csrc/mlp_chain_bf16_plan.h, built here with the host compiler), the scorer's
 summary metrics, the kernels' bounds (`kernel_measure`) and the kernel A/B
-tool's ptxas parsing. The
-kernels themselves are held against their plain versions on the H100 by
-`chip_smoke.py`; their tile, grid and scratch planning is C code
-(`make_plan` in csrc/mlp_chain_bwd.cu, the launcher of csrc/setconv_fwd.cu)
-and runs only there."""
+tool's ptxas parsing. The kernels themselves are held against their plain
+versions on the H100 by `chip_smoke.py`; the float32 kernels' tile, grid and
+scratch planning is C code inside their launchers (`make_plan` in
+csrc/mlp_chain_bwd.cu, the launcher of csrc/setconv_fwd.cu) and runs only
+there."""
 
+import ctypes
 import os
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -26,11 +30,25 @@ torch.set_num_threads(1)
 
 def test_sources_and_header_are_in_the_build():
     names = {os.path.basename(p) for p in _build.sources()}
-    assert {"setconv_fwd.cu", "mlp_chain_fwd.cu", "mlp_chain_bwd.cu"} <= names
-    assert os.path.exists(os.path.join(_build.CSRC_DIR, "tile_fma.cuh"))
+    assert {"setconv_fwd.cu", "mlp_chain_fwd.cu", "mlp_chain_bwd.cu", "mlp_chain_fwd_bf16.cu",
+            "mlp_chain_bwd_bf16.cu", "mlp_chain_bf16_plan.cu"} <= names
+    headers = {os.path.basename(p) for p in _build.headers()}
+    assert {"tile_fma.cuh", "mlp_chain_bf16.cuh", "mlp_chain_bf16_fma.cuh",
+            "mlp_chain_bf16_plan.h"} <= headers
 
 
-@pytest.mark.parametrize("edited", ["tile_fma.cuh", "setconv_fwd.cu"])
+def test_bf16_plan_queries_are_bound():
+    """The plan queries the wrappers and chip_smoke.py ask: (M, C, H, L1, O)
+    ints; the path queries return an int, the size queries a long long."""
+    for name in ("npf_mlp_chain_fwd_bf16_path", "npf_mlp_chain_bwd_bf16_path",
+                 "npf_mlp_chain_bwd_bf16_scratch"):
+        assert _build._SIGNATURES[name] == [ctypes.c_int] * 5
+    assert _build._SIGNATURES["npf_mlp_chain_fwd_bf16_smem"] == [ctypes.c_int] * 4
+    assert "npf_mlp_chain_fwd_bf16_path" not in _build._RESTYPES
+    assert _build._RESTYPES["npf_mlp_chain_bwd_bf16_scratch"] is ctypes.c_longlong
+
+
+@pytest.mark.parametrize("edited", ["tile_fma.cuh", "setconv_fwd.cu", "mlp_chain_bf16_plan.h"])
 def test_library_name_follows_every_source_and_header(tmp_path, edited):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
@@ -156,3 +174,79 @@ def test_ptxas_report_reads_registers_and_static_shared_memory():
            "ptxas info    : Used 127 registers, used 1 barriers, 25600 bytes smem\n")
     assert ptxas_report(log) == [dict(kernel="_Zk1", registers=168, smem_bytes=0),
                                  dict(kernel="_Zk2", registers=127, smem_bytes=25600)]
+
+
+@pytest.fixture(scope="module")
+def bf16_plan(tmp_path_factory):
+    """csrc/mlp_chain_bf16_plan.cu, the bf16 kernels' C plan queries, built
+    with the host C++ compiler and bound as `_build.load` binds the kernel
+    library (the kernels' entry points are absent from it)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    out = str(tmp_path_factory.mktemp("plan") / "libplan.so")
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC", "-o", out,
+                    os.path.join(_build.CSRC_DIR, "mlp_chain_bf16_plan.cu")], check=True)
+    return _build.load(out)
+
+
+# (M, C, H, L1, O) of the chip's K2-bf16/K3-bf16 cases: the decoder at the
+# scoring and training shapes, then K2's edge cases (chip_smoke.py, K2_CASES)
+_DECODER = [(65536, 128, 128, 3, 2), (8192, 128, 128, 3, 2)]
+_K2_EDGES = [(4099, 37, 64, 2, 5), (1000, 128, 128, 0, 3), (1500, 200, 96, 1, 2),
+             (3001, 200, 256, 2, 3), (3001, 200, 320, 2, 3), (2049, 128, 128, 1, 8),
+             (2049, 128, 128, 1, 9), (20001, 64, 96, 2, 130), (20001, 96, 144, 2, 3)]
+_REFUSED = [(300, 800, 700, 1, 2), (300, 1600, 1600, 1, 2)]
+
+
+def _parent_takes_fwd(M, C, H, L1, O):
+    """1525b57's K2-bf16 plan: 32-row tiles of two activation buffers of
+    max(C, H) features and a staged weight chunk within 232,448 bytes."""
+    return 2 * max(C, H) * 36 * 4 + 32 * 132 * 4 <= 232448
+
+
+def _parent_takes_bwd(M, C, H, L1, O):
+    """1525b57's K3-bf16 plan: three activation buffers, a staged chunk and
+    the ReLU masks of a 32-row tile within 232,448 bytes."""
+    kpad = max(C, H, O)
+    masks = -(-(L1 + 1) * H * 32 // 16) * 16
+    return M >= 1 and 3 * kpad * 36 * 4 + 32 * 132 * 4 + masks <= 232448
+
+
+def test_bf16_plan_sends_the_decoder_to_the_tensor_cores(bf16_plan):
+    for shape in _DECODER:
+        assert bf16_plan.npf_mlp_chain_fwd_bf16_path(*shape) == 1
+        assert bf16_plan.npf_mlp_chain_bwd_bf16_path(*shape) == 1
+        M, C, H, L1, O = shape
+        # the a_l and p_l scratch rows padded to 16 features, and the slices' sums
+        assert bf16_plan.npf_mlp_chain_bwd_bf16_scratch(*shape) >= 2 * (L1 + 1) * M * H * 2
+    for shape in _K2_EDGES:
+        M, C, H, L1, O = shape
+        tc = max(C, H, O) <= 128
+        assert bf16_plan.npf_mlp_chain_fwd_bf16_path(*shape) == (1 if tc else 2)
+        assert bf16_plan.npf_mlp_chain_bwd_bf16_path(*shape) == (1 if tc else 2)
+        assert bf16_plan.npf_mlp_chain_fwd_bf16_smem(M, C, H, O) > 0
+    for shape in _REFUSED:
+        M, C, H, L1, O = shape
+        assert bf16_plan.npf_mlp_chain_fwd_bf16_path(*shape) == -1
+        assert bf16_plan.npf_mlp_chain_fwd_bf16_smem(M, C, H, O) == -1
+
+
+def test_bf16_plan_refuses_nothing_the_parent_took(bf16_plan):
+    """Over widths on both sides of the tensor-core kernels' 128 and of the
+    FMA kernels' shared memory, a call is refused exactly where 1525b57's
+    plan refused it, and only widths up to 128 take the tensor cores."""
+    for M in (1, 5000):
+        for C in (1, 37, 128, 129, 200, 748, 749):
+            for H in (16, 64, 128, 144, 320, 700):
+                for L1 in (0, 3, 6):
+                    for O in (1, 2, 16, 130):
+                        shape = (M, C, H, L1, O)
+                        fwd = bf16_plan.npf_mlp_chain_fwd_bf16_path(*shape)
+                        bwd = bf16_plan.npf_mlp_chain_bwd_bf16_path(*shape)
+                        assert (fwd != -1) == _parent_takes_fwd(*shape), shape
+                        assert (bwd != -1) == _parent_takes_bwd(*shape), shape
+                        assert (bf16_plan.npf_mlp_chain_bwd_bf16_scratch(*shape) >= 0) == (
+                            bwd != -1), shape
+                        if 1 in (fwd, bwd):
+                            assert max(C, H, O) <= 128, shape
