@@ -27,13 +27,27 @@ Phases, each announced with the seconds elapsed:
   6. autograd through the kernels against the plain modules at the training
      shapes: a SetConv through K1 and the decoder MLP through K2 and K3;
   7. the scoring path: score the 2048 thetas recorded in the flagship run
-     `results/GW_time_cond_film_ctx192_d128/ConvCNP/run_1` through K1 and K2,
-     check the launch counts and the quality bands, then compare one batch
-     with the plain path;
-  8. the training path: train the flagship configuration from the port's
-     init for 500 steps at batch 32 (`train_gw.run`, into a temporary
-     directory), check the launch counts, that the loss falls, a kernel-path
-     train step against a plain-path one, and that the written run reloads;
+     `results/GW_time_cond_film_ctx192_d128/ConvCNP/run_1` through K1 and K2
+     with `score_run`, the first batch eagerly and the other seven
+     replayed from its CUDA graph (which `score_run` takes by itself only
+     where more batches follow: `graph_every_run`); count the path's launches (the
+     wrappers' counts at the eager batch and the capture, and a traced
+     replay of that run's own graph) and check the quality bands; score them
+     eagerly (a loop of `score_batch`) and hold the graphed scores to the
+     eager ones per waveform; then compare one batch with the plain path,
+     and time one batch eagerly and replayed from its graph;
+  8. the training path: the train step captured in a CUDA graph against the
+     eager step, from two trainers with the same init and generator seed
+     (the counters at the capture; one step: thetas and masks bit-identical,
+     loss and gradients at the step bars; ten steps; ten steps of
+     `train_steps_scanned` on stacked batches; the kernels of one replay in
+     the profiler's trace);
+     then train the flagship configuration from the port's init for 500
+     graphed steps at batch 32 (`train_gw.train`), check that the loss
+     falls, a kernel-path train step against a plain-path one, that the
+     written run reloads, count the path's launches (the wrappers' counts at
+     the warm-up steps and the capture, and a traced replay of that run's own
+     graph), and print the eager and graphed step and batch times;
   9. K2-bf16 (the chain forward in bfloat16 compute) against its plain
      version at the scoring and training decoder shapes with the run's
      weights and at K2's edge cases (the two widths past its shared memory
@@ -44,13 +58,16 @@ Phases, each announced with the seconds elapsed:
      meet the bars of `kernel_measure.py`, and two launches must give the
      same bits;
  10. the bf16 scoring path: score the same 2048 thetas in bfloat16 compute
-     with the same context draws, check the launch counts (no float32 K2 or
-     K3), the quality bands and the gap to the float32 score, then one batch
+     with the same context draws, graphed, count the launches (no float32 K2
+     or K3), check the quality bands and the gap to the float32 score, hold
+     them to eager bf16 scoring; time `score_run` end to end against the
+     eager loop at n_test 2048, 300 and the least it graphs, in float32 and
+     bf16; then one batch
      of the kernel path against the same path with every kernel replaced by
      its plain version;
- 11. the bf16 training path: 500 steps at batch 32 from seed 0 in bfloat16
-     compute, the launch counts, that the loss falls, and one step of the
-     kernel path against the plain-kernel path.
+ 11. the bf16 training path: phase 8's graph checks in bfloat16 compute,
+     500 graphed steps at batch 32 from seed 0, that the loss falls, one step
+     of the kernel path against the plain-kernel path, and the launches.
 It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -68,24 +85,31 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from npf_gwwaveform_tpu_torch import _build
+from npf_gwwaveform_tpu_torch import score as score_mod
 from npf_gwwaveform_tpu_torch import train_gw
 from npf_gwwaveform_tpu_torch.configs import gw_train_summary
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.kernel_measure import (
     K2_BF16_SUM_TOL, K2_CASES, cublas_chain_ms, k1_bound, k1_inputs, k2_bf16_ok, k2_bf16_report,
     k2_bound, k2_inputs, k3_bf16_ok, k3_bf16_report, k3_bound, k3_inputs, time_ms,
+    traced_launches,
 )
-from npf_gwwaveform_tpu_torch.ops.kernels import mlp_chain, setconv
+from npf_gwwaveform_tpu_torch.ops.kernels import (
+    counts, hand_kernel_id, mlp_chain, reset_counts, setconv,
+)
 from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
     fused_relu_mlp, fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain, fused_relu_mlp_plain,
 )
 from npf_gwwaveform_tpu_torch.ops.kernels.setconv import setconv_exprbf_fwd, setconv_exprbf_plain
 from npf_gwwaveform_tpu_torch.score import (
-    eval_splitter, load_model, make_eval_batch, read_run_thetas, run_generator, score_batch,
-    score_run,
+    batch_graph, eval_splitter, load_model, make_eval_batch, read_run_thetas, run_generator,
+    score_batch, score_run,
 )
+from npf_gwwaveform_tpu_torch.utils.cuda_graph import WARMUP_CALLS
 from npf_gwwaveform_tpu_torch.utils.helpers import linspace, set_numerics
 
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -158,6 +182,21 @@ BF16_PATH_RMS, BF16_PATH_MAX = 0.5, 0.75
 # of tests/test_torch_bf16_train.py (loss 1e-3 relative; each gradient 1e-1
 # of its max magnitude)
 BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL = 1e-3, 1e-1
+# the train step captured in a CUDA graph against the eager step, from two
+# trainers with the same init and generator seed: one step at the step bars
+# above (the same kernels on the same inputs; cuDNN deterministic), then
+# GRAPH_STEPS steps, each loss within 1e-4 relative (ROADMAP's 1e-5 a step,
+# grown over ten steps)
+GRAPH_STEPS, GRAPH_STEPS_LOSS_RTOL = 10, 1e-4
+# graphed scoring against eager scoring of the same 2048 thetas with the same
+# context draws, per waveform: LL 1e-4 absolute (about 1e-7 of the LL, a few
+# float32 roundings), mismatch 1e-6 absolute (a few float32 roundings of the
+# match, 1 - mismatch)
+GRAPH_LL_ATOL, GRAPH_MISMATCH_ATOL = 1e-4, 1e-6
+# the launches a call of each path makes, (K1, K2, K3, K2-bf16, K3-bf16) as
+# `counts()` orders them
+SCORE_CALL, SCORE16_CALL = (2, 1, 0, 0, 0), (2, 0, 0, 1, 0)
+TRAIN_CALL, TRAIN16_CALL = (2, 1, 1, 0, 0), (2, 0, 0, 1, 1)
 
 _T0 = time.perf_counter()
 
@@ -278,18 +317,6 @@ def plain_kernels():
         yield
     finally:
         setconv.setconv_exprbf_fwd, mlp_chain.fused_relu_mlp, mlp_chain.fused_relu_mlp_bwd = saved
-
-
-def reset_counts():
-    setconv_exprbf_fwd.launches = 0
-    for fn in (fused_relu_mlp, fused_relu_mlp_bwd):
-        fn.launches = fn.launches_bf16 = 0
-
-
-def counts():
-    """(K1, K2, K3, K2-bf16, K3-bf16) launches since `reset_counts`."""
-    return (setconv_exprbf_fwd.launches, fused_relu_mlp.launches, fused_relu_mlp_bwd.launches,
-            fused_relu_mlp.launches_bf16, fused_relu_mlp_bwd.launches_bf16)
 
 
 def check_k2_bf16(cases):
@@ -450,6 +477,18 @@ def _bn_cancelled(name):
     return ".conv1." in name and name.endswith(".bias")
 
 
+def _step_grad_errs(grads, ref):
+    """({parameter: max |g - ref| / max |ref|} but the BatchNorm-cancelled
+    biases, {cancelled bias: the larger of its two gradients' max magnitudes
+    over its block's conv1.pointwise weight gradient's})."""
+    errs = _grad_errs((n, grads[n], ref[n]) for n in ref if not _bn_cancelled(n))
+    zero = {}
+    for n in filter(_bn_cancelled, ref):
+        scale = ref[n.rsplit(".", 2)[0] + ".pointwise.weight"].abs().max()
+        zero[n] = (max(grads[n].abs().max(), ref[n].abs().max()) / scale).item()
+    return errs, zero
+
+
 def check_train_step(model, summary, gen, dtype=None):
     """One train step on the kernel path against one on the plain path, on
     copies with identical parameters and one identical split batch. Each
@@ -480,11 +519,7 @@ def check_train_step(model, summary, gen, dtype=None):
     torch.cuda.synchronize()
     (loss_k, grads_k), (loss_p, grads_p) = res["kernel"], res["plain"]
     loss_rel = (abs(loss_k - loss_p) / abs(loss_p)).item()
-    errs = _grad_errs((n, grads_k[n], grads_p[n]) for n in grads_p if not _bn_cancelled(n))
-    zero = {}
-    for n in filter(_bn_cancelled, grads_p):
-        scale = grads_p[n.rsplit(".", 2)[0] + ".pointwise.weight"].abs().max()
-        zero[n] = (max(grads_k[n].abs().max(), grads_p[n].abs().max()) / scale).item()
+    errs, zero = _step_grad_errs(grads_k, grads_p)
     worst, worst_zero = max(errs, key=errs.get), max(zero, key=zero.get)
     print(f"train step{' (bf16)' if bf16 else ''}, kernel vs plain path: loss "
           f"{loss_k.item():.4f} vs {loss_p.item():.4f} "
@@ -496,10 +531,244 @@ def check_train_step(model, summary, gen, dtype=None):
     return loss_rel, errs[worst]
 
 
+def trace_replay(graph, tag=""):
+    """One replay of `graph` under the profiler -> its wrappers' launches
+    (`traced_launches`); prints them and the hand kernels it ran."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    per_replay = traced_launches(prof)
+    print(f"one traced replay{tag}: wrapper launches (K1, K2, K3, K2-bf16, K3-bf16) "
+          f"{per_replay}; its hand kernels:")
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and hand_kernel_id(e.key) is not None:
+            print(f"   x{e.count} {e.key[:100]}")
+    return per_replay
+
+
+def path_launches(name, counted, graph, calls, per_call):
+    """The launches a graphed path made on the card, from its run: the
+    wrappers' counts over the run (`counted`: its `calls` eager or captured
+    calls of the step, each `per_call` launches) less the capture's, which
+    records the kernels without running them, plus `graph.replays` times
+    the launches of one traced replay of the path's own graph, which must
+    be `per_call`. -> {launches, replays, per_replay}."""
+    replays = graph.replays
+    per_replay = trace_replay(graph, f" of the {name} path's graph")
+    if counted != tuple(calls * c for c in per_call) or per_replay != per_call:
+        raise AssertionError(f"the {name} path: wrapper counts {counted} over {calls} calls and "
+                             f"{per_replay} a replay, not {per_call} a call")
+    launches = tuple((calls - 1 + replays) * c for c in per_call)
+    print(f"the {name} path launched (K1, K2, K3, K2-bf16, K3-bf16) {launches} on the card: "
+          f"{calls - 1} eager calls, the capture and {replays} replays")
+    return dict(launches=launches, replays=replays, per_replay=per_replay)
+
+
+def check_graph_train(summary, dtype=None) -> dict:
+    """The train step captured in a CUDA graph against the eager step, two
+    trainers from seed 0 (same init, same generator seed) in compute `dtype`:
+    the counters at the capture, one step (thetas and masks bit-identical,
+    loss and gradients at the step bars), ten steps (each loss within
+    `GRAPH_STEPS_LOSS_RTOL`), ten `train_steps_scanned` steps on stacked
+    batches against eager steps on them, and the kernels of one replay in
+    the profiler's trace. -> {per_replay: launches (K1, K2, K3, K2-bf16,
+    K3-bf16) of one replay, eager_step_ms: the eager step's median}."""
+    bf16 = dtype is not None
+    tag = " (bf16)" if bf16 else ""
+    loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL) if bf16
+                            else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
+    expected = TRAIN16_CALL if bf16 else TRAIN_CALL
+    space, wave = GWParameterSpace(), run_generator(summary)
+
+    def recorded_trainer():
+        """A trainer whose thetas and context masks are kept, step by step."""
+        trainer = train_gw.build_trainer(summary, TRAIN_STEPS, "cuda", seed=0, dtype=dtype)
+        draws, split = [], trainer.splitter
+
+        def sample(g):
+            theta = space.sample(TRAIN_BATCH, g)
+            draws.append([theta])
+            return make_eval_batch(theta, wave, space)
+
+        def splitter(g, x, y, condition=None):
+            batch = split(g, x, y, condition=condition)
+            draws[-1].append(batch["mask_cntxt"])
+            return batch
+
+        trainer.splitter = splitter
+        return trainer, sample, draws
+
+    (t_g, sample_g, draws_g), (t_e, sample_e, draws_e) = recorded_trainer(), recorded_trainer()
+    graph = t_g.generated_graph(sample_g)
+    graph.warm_up()
+    reset_counts()
+    graph.capture()
+    captured = counts()
+    print(f"captured train step{tag}: wrapper launches (K1, K2, K3, K2-bf16, K3-bf16) {captured} "
+          f"at the capture (after {WARMUP_CALLS} eager warm-up steps)")
+    if captured != expected:
+        raise AssertionError(f"the capture launched {captured}, not {expected}")
+
+    loss_g = t_g.train_steps_generated(sample_g, 1)
+    loss_e = t_e.train_step_cond(*sample_e(t_e.state.generator))["loss"]
+    torch.cuda.synchronize()
+    draws_same = all(torch.equal(a, b) for a, b in zip(draws_g[-1], draws_e[-1]))
+    grads_g = {n: p.grad for n, p in t_g.model.named_parameters()}
+    grads_e = {n: p.grad for n, p in t_e.model.named_parameters()}
+    loss_rel = (abs(loss_g[0] - loss_e) / abs(loss_e)).item()
+    errs, zero = _step_grad_errs(grads_g, grads_e)
+    worst, worst_zero = max(errs, key=errs.get), max(zero, key=zero.get)
+    bits = (draws_same and torch.equal(loss_g[0], loss_e)
+            and all(torch.equal(grads_g[n], grads_e[n]) for n in grads_e)
+            and all(torch.equal(a, b) for a, b in zip(t_g.model.state_dict().values(),
+                                                       t_e.model.state_dict().values())))
+    print(f"one graphed step vs one eager step{tag}: thetas and masks bit-identical "
+          f"{draws_same}; loss {loss_g[0].item():.4f} vs {loss_e.item():.4f} (rel "
+          f"{loss_rel:.3e}); {len(errs)} gradients, worst {errs[worst]:.3e} of its max magnitude "
+          f"({worst}); BatchNorm-cancelled biases {zero[worst_zero]:.3e}; everything "
+          f"bit-identical (loss, gradients, parameters, BatchNorm statistics) {bits}")
+    if not (draws_same and loss_rel <= loss_rtol and errs[worst] <= grad_rtol
+            and zero[worst_zero] <= grad_rtol):
+        raise AssertionError(f"the graphed train step{tag} disagrees with the eager step")
+
+    eager, eager_seconds = [loss_e], []
+    for _ in range(GRAPH_STEPS - 1):
+        t0 = time.perf_counter()
+        eager.append(t_e.train_step_cond(*sample_e(t_e.state.generator))["loss"])
+        torch.cuda.synchronize()
+        eager_seconds.append(time.perf_counter() - t0)
+    graphed = torch.cat([loss_g, t_g.train_steps_generated(sample_g, GRAPH_STEPS - 1)])
+    eager = torch.stack(eager)
+    gaps = ((graphed - eager).abs() / eager.abs()).cpu().numpy()
+    print(f"{GRAPH_STEPS} graphed steps vs {GRAPH_STEPS} eager steps{tag}: largest loss gap "
+          f"{gaps.max():.3e} relative (step {gaps.argmax() + 1}); bit-identical "
+          f"{torch.equal(graphed, eager)}")
+    if gaps.max() > GRAPH_STEPS_LOSS_RTOL:
+        raise AssertionError(f"{GRAPH_STEPS} graphed steps{tag} part from the eager steps")
+
+    # train_steps_scanned: the same steps on stacked batches made beforehand,
+    # each copied into the graph's inputs, against eager steps on them
+    g = torch.Generator(device="cuda").manual_seed(3)
+    xs, ys, conds = (torch.stack(t) for t in zip(*(
+        make_eval_batch(space.sample(TRAIN_BATCH, g), wave, space) for _ in range(GRAPH_STEPS))))
+    t_s = train_gw.build_trainer(summary, TRAIN_STEPS, "cuda", seed=0, dtype=dtype)
+    t_se = train_gw.build_trainer(summary, TRAIN_STEPS, "cuda", seed=0, dtype=dtype)
+    scanned = t_s.train_steps_scanned(xs, ys, conds)
+    eager_scan = torch.stack([t_se.train_step_cond(x, y, c)["loss"]
+                              for x, y, c in zip(xs, ys, conds)])
+    scan_gaps = ((scanned - eager_scan).abs() / eager_scan.abs()).cpu().numpy()
+    print(f"{GRAPH_STEPS} scanned graphed steps vs {GRAPH_STEPS} eager steps on the same stacked "
+          f"batches{tag}: largest loss gap {scan_gaps.max():.3e} relative; bit-identical "
+          f"{torch.equal(scanned, eager_scan)}")
+    if scan_gaps.max() > GRAPH_STEPS_LOSS_RTOL:
+        raise AssertionError(f"scanned graphed steps{tag} part from the eager steps")
+
+    per_replay = trace_replay(graph, tag)
+    if per_replay != expected:
+        raise AssertionError(f"one replay{tag} launched {per_replay}, not {expected}")
+    return dict(per_replay=per_replay, eager_step_ms=1e3 * float(np.median(eager_seconds)))
+
+
+@contextlib.contextmanager
+def graph_every_run():
+    """Inside, `score_run` replays its batch graph whenever a second batch
+    of 256 follows the first: `score.GRAPH_MIN_REPLAYS` (the graph pays for
+    its capture only in longer runs) set to 1."""
+    saved = score_mod.GRAPH_MIN_REPLAYS
+    score_mod.GRAPH_MIN_REPLAYS = 1
+    try:
+        yield
+    finally:
+        score_mod.GRAPH_MIN_REPLAYS = saved
+
+
+def eager_scores(n, dtype=None, recorded=True):
+    """`score_run`'s scoring of the run's first `n` recorded thetas (or,
+    not `recorded`, of `n` drawn as `score_run` draws them) with no graph:
+    a loop of `score_batch` on a generator seeded as `score_run` seeds it,
+    timed as `score_run` times its loop -> {ll, mismatch, mismatch_zdraw,
+    n, mean_ll, seconds}."""
+    with open(os.path.join(RUN_DIR, "summary.json")) as f:
+        summary = json.load(f)
+    model = load_model(RUN_DIR, "cuda", dtype=dtype)
+    wave, space = run_generator(summary), GWParameterSpace()
+    splitter = eval_splitter(summary["n_context"])
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    if recorded:
+        thetas = torch.from_numpy(read_run_thetas(RUN_DIR)[:n]).cuda()
+    else:
+        thetas = space.sample(n, generator)
+    parts = []
+    t0 = time.perf_counter()
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for i in range(0, n, 256):
+            parts.append(score_batch(model, splitter, generator, thetas[i:i + 256], wave,
+                                     space)[:3])
+        ll, mm, mz = (torch.cat(t).cpu().numpy() for t in zip(*parts))
+    return dict(ll=ll, mismatch=mm, mismatch_zdraw=mz, n=int(ll.shape[0]),
+                mean_ll=float(ll.mean()), seconds=time.perf_counter() - t0)
+
+
+def score_timing(smi, dtype=None) -> dict:
+    """`score_run` end to end (the seconds of its loop, graphed where enough
+    batches follow) against the eager loop (`eager_scores`): at n_test 2048
+    and 300 on the recorded thetas, and on drawn thetas at the least n_test
+    that `score_run` graphs, (GRAPH_MIN_REPLAYS + 1) batches of 256; each
+    in the order score_run, eager, eager, score_run -> {n: {"score_run": [s,
+    s], "eager": [s, s], "graphed": whether score_run replayed a graph}}."""
+    tag = " (bf16)" if dtype is not None else ""
+    res = {}
+    for n in (N_TEST, 300, (score_mod.GRAPH_MIN_REPLAYS + 1) * 256):
+        recorded = n <= N_TEST
+        t = {"score_run": [], "eager": []}
+        for which in ("score_run", "eager", "eager", "score_run"):
+            if which == "eager":
+                t["eager"].append(eager_scores(n, dtype, recorded)["seconds"])
+            else:
+                out = score_run(RUN_DIR, n, thetas_from=RUN_DIR if recorded else None,
+                                device="cuda", dtype=dtype)
+                t["score_run"].append(out["seconds"])
+                t["graphed"] = out["graph"] is not None
+        print(f"score_run end to end{tag}, n_test {n} ({'graphed' if t['graphed'] else 'eager'}): "
+              f"{', '.join(f'{x:.4f}' for x in t['score_run'])} s; the eager loop "
+              f"{', '.join(f'{x:.4f}' for x in t['eager'])} s (host clock; {smi})")
+        res[n] = t
+    return res
+
+
+def check_graph_scores(graphed, eager, tag=""):
+    """Graphed scoring against eager scoring of the same thetas, per waveform."""
+    d_ll = np.abs(graphed["ll"] - eager["ll"]).max()
+    d_mm = np.abs(graphed["mismatch"] - eager["mismatch"]).max()
+    same = all(np.array_equal(graphed[k], eager[k]) for k in ("ll", "mismatch", "mismatch_zdraw"))
+    print(f"graphed vs eager scoring{tag} of {eager['n']} waveforms: LL largest gap {d_ll:.3e}, "
+          f"mismatch {d_mm:.3e}; bit-identical {same}; eager mean LL {eager['mean_ll']:.3f}, "
+          f"{eager['seconds']:.2f}s; graphed {graphed['seconds']:.2f}s")
+    if not (d_ll <= GRAPH_LL_ATOL and d_mm <= GRAPH_MISMATCH_ATOL):
+        raise AssertionError(f"graphed scoring{tag} disagrees with eager scoring")
+
+
+def graphed_batch_ms(model, splitter, theta, wave, space, reps=5):
+    """Median host-clock time of a synchronised replay of the batch's graph
+    (after an eager batch of the same model and shapes; run under inference
+    mode)."""
+    graph = batch_graph(model, splitter, torch.Generator(device="cuda").manual_seed(1), theta,
+                        wave, space)
+    graph.replay(theta)  # the capture
+    t = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay(theta)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(t))
+
+
 def kernel_entry(name, source, replaces, launches, rows, path_shapes, launches_by_path):
     """One kernel's line entry: times summed over the shapes one train step
     runs, the largest error over every shape checked; `launches` is the
-    training path's count."""
+    training path's launches on the card (`path_launches`)."""
     on_path = [r for r in rows if r["shape"] in path_shapes]
     total = lambda key: sum(r[key] for r in on_path)  # noqa: E731
     entry = dict(
@@ -594,17 +863,23 @@ def main() -> int:
     phase("autograd through K1, K2, K3 vs the plain modules")
     check_autograd(model, gen)
 
-    phase("scoring path: score run_1 through K1 and K2")
+    phase("scoring path: score run_1 through K1 and K2, the first batch eagerly and the rest "
+          "replayed from its CUDA graph")
     reset_counts()
-    out = score_run(RUN_DIR, N_TEST, thetas_from=RUN_DIR, device="cuda")
-    score_launches = counts()
+    with graph_every_run():
+        out = score_run(RUN_DIR, N_TEST, thetas_from=RUN_DIR, device="cuda")
+    score_counted = counts()
     n_batches = -(-N_TEST // 256)
     print(f"scored {out['n']} waveforms in {out['seconds']:.2f}s: mean LL {out['mean_ll']:.3f}, "
           f"median mismatch {out['median_mismatch']:.6f}, p90 {out['mismatch_p90']:.4f}, "
-          f"frac < 0.1 {out['frac_below_0.1']:.4f}; launches K1 {score_launches[0]}, "
-          f"K2 {score_launches[1]}, K3 {score_launches[2]}")
-    if score_launches != (2 * n_batches, n_batches, 0, 0, 0):
-        raise AssertionError(f"expected {2 * n_batches} K1, {n_batches} K2 and no other launches")
+          f"frac < 0.1 {out['frac_below_0.1']:.4f}; wrapper launches (K1, K2, K3, K2-bf16, "
+          f"K3-bf16) {score_counted} (the first batch and the capture of its graph)")
+    if out["graph"] is None:
+        raise AssertionError(f"score_run scored {N_TEST} thetas without its batch graph")
+    score_path = path_launches("scoring", score_counted, out["graph"], 2, SCORE_CALL)
+    if score_path["replays"] != n_batches - 1:
+        raise AssertionError(f"{score_path['replays']} replays of the batch graph, not "
+                             f"{n_batches - 1}")
     if not (np.isfinite(out["ll"]).all() and np.isfinite(out["mismatch"]).all()
             and out["n"] == N_TEST):
         raise AssertionError("non-finite or missing per-waveform results")
@@ -612,6 +887,13 @@ def main() -> int:
         raise AssertionError(f"mean LL {out['mean_ll']} outside {LL_BAND}")
     if not MISMATCH_BAND[0] <= out["median_mismatch"] <= MISMATCH_BAND[1]:
         raise AssertionError(f"median mismatch {out['median_mismatch']} outside {MISMATCH_BAND}")
+
+    phase("scoring path: graphed vs eager scoring of the 2048 thetas")
+    reset_counts()
+    eager_out = eager_scores(N_TEST)
+    if counts() != tuple(n_batches * c for c in SCORE_CALL):
+        raise AssertionError(f"eager scoring launched {counts()}")
+    check_graph_scores(out, eager_out)
 
     phase("scoring path: one batch, kernel path vs plain path")
     plain_model = load_model(RUN_DIR, "cuda", use_kernels=False)
@@ -634,6 +916,11 @@ def main() -> int:
                 t.append(time.perf_counter() - t0)
             print(f"{label} path: one 256-waveform batch {1e3 * float(np.median(t)):.3f} ms "
                   f"(median of 5, host clock)")
+            if label == "kernel":
+                batch_ms = (1e3 * float(np.median(t)),
+                            graphed_batch_ms(m, splitter, theta, gw_gen, space))
+    print(f"kernel path, one batch replayed from its CUDA graph: {batch_ms[1]:.3f} ms (median of "
+          "5, host clock)")
     loc_err = (outs["kernel"][0] - outs["plain"][0]).abs().max().item()
     scale_err = (outs["kernel"][1] - outs["plain"][1]).abs().max().item()
     ll_err = (outs["kernel"][2] - outs["plain"][2]).abs().max().item()
@@ -641,33 +928,40 @@ def main() -> int:
     if not (loc_err <= PATH_TOL and scale_err <= PATH_TOL):
         raise AssertionError("kernel path disagrees with the plain path")
 
-    phase(f"training path: {TRAIN_STEPS} steps of the flagship configuration at batch "
-          f"{TRAIN_BATCH} from the port's init")
     train_summary = gw_train_summary()
+    phase("training path: the train step in a CUDA graph vs the eager step")
+    graph_train = check_graph_train(train_summary)
+
+    phase(f"training path: {TRAIN_STEPS} graphed steps of the flagship configuration at batch "
+          f"{TRAIN_BATCH} from the port's init")
     trainer = train_gw.build_trainer(train_summary, TRAIN_STEPS, "cuda", seed=0)
     reset_counts()
     history, losses, seconds, step_seconds = train_gw.train(
         trainer, train_summary, TRAIN_STEPS, TRAIN_BATCH, time_steps=True)
-    train_launches = counts()
+    train_counted = counts()
+    (train_graph,) = trainer.graphs.values()
     losses = losses.cpu().numpy()
     early, late = float(np.median(losses[:50])), float(np.median(losses[250:500]))
     step_ms = 1e3 * float(np.median(step_seconds))
-    print(f"trained {TRAIN_STEPS} steps in {seconds:.2f}s; launches K1 {train_launches[0]}, "
-          f"K2 {train_launches[1]}, K3 {train_launches[2]}")
+    print(f"trained {TRAIN_STEPS} steps in {seconds:.2f}s; wrapper launches (K1, K2, K3, "
+          f"K2-bf16, K3-bf16) {train_counted} ({WARMUP_CALLS} warm-up steps and the capture), "
+          f"{train_graph.replays} replays")
     print("50-step mean losses: " + ", ".join(f"{h['step']}: {h['train_loss']:.1f}"
                                               for h in history))
     print(f"median loss over steps 1-50 {early:.2f}, over steps 251-500 {late:.2f} "
           f"(fell {early - late:.2f} nats; below 0: {late < 0.0})")
-    print(f"train step {step_ms:.3f} ms (median of {TRAIN_STEPS}, host clock, synchronised): "
-          f"{1e3 * TRAIN_BATCH / step_ms:.0f} wf/s on {smi}")
-    if train_launches != (2 * TRAIN_STEPS, TRAIN_STEPS, TRAIN_STEPS, 0, 0):
-        raise AssertionError(f"expected {2 * TRAIN_STEPS} K1, {TRAIN_STEPS} K2 and {TRAIN_STEPS} "
-                             "K3 launches and no bf16 ones")
+    print(f"graphed train step {step_ms:.3f} ms (median of {TRAIN_STEPS}, host clock, "
+          f"synchronised): {1e3 * TRAIN_BATCH / step_ms:.0f} wf/s on {smi}")
+    if train_graph.replays != TRAIN_STEPS:
+        raise AssertionError(f"{train_graph.replays} replays of the train graph, not {TRAIN_STEPS}")
     if not np.isfinite(losses).all():
         raise AssertionError("non-finite training loss")
     if not late <= early - LOSS_FALL_NATS:
         raise AssertionError(f"the loss did not fall: median {early:.2f} over steps 1-50, "
                              f"{late:.2f} over steps 251-500")
+    print(f"timing (host clock, synchronised, medians; {smi}): train step eager "
+          f"{graph_train['eager_step_ms']:.3f} ms, graphed {step_ms:.3f} ms; scoring batch eager "
+          f"{batch_ms[0]:.3f} ms, graphed {batch_ms[1]:.3f} ms")
 
     phase("training path: one step, kernel path vs plain path")
     trained = trainer.model
@@ -694,6 +988,9 @@ def main() -> int:
               f"{scored['median_mismatch']:.4f}")
         if not (same and np.isfinite(scored["ll"]).all()):
             raise AssertionError("the written run does not reload to the trained model")
+    # the last use of the trained model: a traced replay trains it one step on
+    train_path = path_launches("training", train_counted, train_graph, WARMUP_CALLS + 1,
+                               TRAIN_CALL)
 
     phase("K2-bf16 mlp_chain_fwd_bf16 vs plain")
     with torch.inference_mode():
@@ -720,8 +1017,9 @@ def main() -> int:
 
     phase("bf16 scoring path: score run_1 in bfloat16 compute through K1 and K2-bf16")
     reset_counts()
-    out16 = score_run(RUN_DIR, N_TEST, thetas_from=RUN_DIR, device="cuda", dtype=BF16)
-    score16_launches = counts()
+    with graph_every_run():
+        out16 = score_run(RUN_DIR, N_TEST, thetas_from=RUN_DIR, device="cuda", dtype=BF16)
+    score16_counted = counts()
     d_ll = out16["mean_ll"] - out["mean_ll"]
     d_mm = out16["median_mismatch"] - out["median_mismatch"]
     d_wf = out16["ll"] - out["ll"]
@@ -729,12 +1027,14 @@ def main() -> int:
           f"{out16['mean_ll']:.3f}, median mismatch {out16['median_mismatch']:.6f}; against "
           f"float32 with the same context draws: mean LL {d_ll:+.4f} (JAX {BF16_D_MEAN_LL:+.3f}), "
           f"median mismatch {d_mm:+.3e}, per-waveform LL differences sd {d_wf.std():.3f}, largest "
-          f"{np.abs(d_wf).max():.2f}; launches K1 {score16_launches[0]}, K2 {score16_launches[1]}, "
-          f"K3 {score16_launches[2]}, K2-bf16 {score16_launches[3]}, K3-bf16 "
-          f"{score16_launches[4]}")
-    if score16_launches != (2 * n_batches, 0, 0, n_batches, 0):
-        raise AssertionError(f"expected {2 * n_batches} K1, {n_batches} K2-bf16 and no other "
-                             "launches")
+          f"{np.abs(d_wf).max():.2f}; wrapper launches (K1, K2, K3, K2-bf16, K3-bf16) "
+          f"{score16_counted} (the first batch and the capture of its graph)")
+    if out16["graph"] is None:
+        raise AssertionError(f"score_run scored {N_TEST} thetas in bf16 without its batch graph")
+    score16_path = path_launches("bf16 scoring", score16_counted, out16["graph"], 2, SCORE16_CALL)
+    if score16_path["replays"] != n_batches - 1:
+        raise AssertionError(f"{score16_path['replays']} replays of the bf16 batch graph, not "
+                             f"{n_batches - 1}")
     if not (np.isfinite(out16["ll"]).all() and np.isfinite(out16["mismatch"]).all()
             and out16["n"] == N_TEST):
         raise AssertionError("non-finite or missing per-waveform results in bf16")
@@ -746,6 +1046,17 @@ def main() -> int:
     if not (abs(d_ll - BF16_D_MEAN_LL) <= BF16_D_MEAN_LL_TOL
             and abs(d_mm) <= BF16_D_MEDIAN_MISMATCH):
         raise AssertionError("the bf16 score's gap to the float32 score is not JAX's")
+
+    phase("bf16 scoring path: graphed vs eager scoring of the 2048 thetas")
+    reset_counts()
+    eager16 = eager_scores(N_TEST, BF16)
+    if counts() != tuple(n_batches * c for c in SCORE16_CALL):
+        raise AssertionError(f"eager bf16 scoring launched {counts()}")
+    check_graph_scores(out16, eager16, " (bf16)")
+
+    phase("scoring end to end: score_run against the eager loop, float32 and bf16")
+    for dtype in (None, BF16):
+        score_timing(smi, dtype)
 
     phase("bf16 scoring path: one batch, kernel path vs plain-kernel path")
     model16 = load_model(RUN_DIR, "cuda", dtype=BF16)
@@ -769,6 +1080,11 @@ def main() -> int:
                     t.append(time.perf_counter() - t0)
             print(f"{label} path: one 256-waveform batch {1e3 * float(np.median(t)):.3f} ms "
                   f"(median of 3, host clock)")
+            if label == "kernel":
+                batch16_ms = (1e3 * float(np.median(t)),
+                              graphed_batch_ms(m, splitter, theta, gw_gen, space))
+    print(f"bf16 kernel path, one batch replayed from its CUDA graph: {batch16_ms[1]:.3f} ms "
+          "(median of 5, host clock)")
     rms = lambda a: a.float().square().mean().sqrt().item()  # noqa: E731
     loc_k, loc_p, loc_32 = outs["kernel"][0], outs["plain-kernel"][0], outs["float32"][0]
     near, gap = rms(loc_k - loc_p), rms(loc_k - loc_32)
@@ -780,57 +1096,70 @@ def main() -> int:
     if not (near <= BF16_PATH_RMS * gap and near_max <= BF16_PATH_MAX * gap_max):
         raise AssertionError("the bf16 kernel path disagrees with its plain-kernel path")
 
-    phase(f"bf16 training path: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} from seed 0")
+    phase("bf16 training path: the train step in a CUDA graph vs the eager step")
+    graph_train16 = check_graph_train(train_summary, BF16)
+
+    phase(f"bf16 training path: {TRAIN_STEPS} graphed steps at batch {TRAIN_BATCH} from seed 0")
     trainer16 = train_gw.build_trainer(train_summary, TRAIN_STEPS, "cuda", seed=0, dtype=BF16)
     reset_counts()
     history16, losses16, seconds16, step_seconds16 = train_gw.train(
         trainer16, train_summary, TRAIN_STEPS, TRAIN_BATCH, time_steps=True)
-    train16_launches = counts()
+    train16_counted = counts()
+    (train16_graph,) = trainer16.graphs.values()
     losses16 = losses16.cpu().numpy()
     early16, late16 = float(np.median(losses16[:50])), float(np.median(losses16[250:500]))
     step16_ms = 1e3 * float(np.median(step_seconds16))
-    print(f"trained {TRAIN_STEPS} bf16 steps in {seconds16:.2f}s; launches K1 "
-          f"{train16_launches[0]}, K2 {train16_launches[1]}, K3 {train16_launches[2]}, K2-bf16 "
-          f"{train16_launches[3]}, K3-bf16 {train16_launches[4]}")
+    print(f"trained {TRAIN_STEPS} bf16 steps in {seconds16:.2f}s; wrapper launches (K1, K2, K3, "
+          f"K2-bf16, K3-bf16) {train16_counted} ({WARMUP_CALLS} warm-up steps and the "
+          f"capture), {train16_graph.replays} replays")
     print("50-step mean losses: " + ", ".join(f"{h['step']}: {h['train_loss']:.1f}"
                                               for h in history16))
     print(f"median loss over steps 1-50 {early16:.2f}, over steps 251-500 {late16:.2f} "
           f"(fell {early16 - late16:.2f} nats; below 0: {late16 < 0.0})")
-    print(f"bf16 train step {step16_ms:.3f} ms (median of {TRAIN_STEPS}, host clock, "
+    print(f"graphed bf16 train step {step16_ms:.3f} ms (median of {TRAIN_STEPS}, host clock, "
           f"synchronised): {1e3 * TRAIN_BATCH / step16_ms:.0f} wf/s on {smi}")
-    if train16_launches != (2 * TRAIN_STEPS, 0, 0, TRAIN_STEPS, TRAIN_STEPS):
-        raise AssertionError(f"expected {2 * TRAIN_STEPS} K1, {TRAIN_STEPS} K2-bf16 and "
-                             f"{TRAIN_STEPS} K3-bf16 launches and no float32 K2 or K3")
+    if train16_graph.replays != TRAIN_STEPS:
+        raise AssertionError(f"{train16_graph.replays} replays of the bf16 train graph, not "
+                             f"{TRAIN_STEPS}")
     if not np.isfinite(losses16).all():
         raise AssertionError("non-finite bf16 training loss")
     if not late16 <= early16 - LOSS_FALL_NATS:
         raise AssertionError(f"the bf16 loss did not fall: median {early16:.2f} over steps "
                              f"1-50, {late16:.2f} over steps 251-500")
+    print(f"bf16 timing (host clock, synchronised, medians; {smi}): train step eager "
+          f"{graph_train16['eager_step_ms']:.3f} ms, graphed {step16_ms:.3f} ms; scoring batch "
+          f"eager {batch16_ms[0]:.3f} ms, graphed {batch16_ms[1]:.3f} ms")
 
     phase("bf16 training path: one step, kernel path vs plain-kernel path")
     check_train_step(trainer16.model, train_summary, gen, BF16)
+    train16_path = path_launches("bf16 training", train16_counted, train16_graph,
+                                 WARMUP_CALLS + 1, TRAIN16_CALL)
+
+    paths = {"score": score_path, "train": train_path, "score_bf16": score16_path,
+             "train_bf16": train16_path}
 
     def launches_by_path(i):
-        return {"score": score_launches[i], "train": train_launches[i],
-                "score_bf16": score16_launches[i], "train_bf16": train16_launches[i]}
+        """Each path's launches of kernel i on the card (`path_launches`)."""
+        return {name: p["launches"][i] for name, p in paths.items()}
 
     mlp = "npf_gwwaveform_tpu/ops/pallas/mlp_chain_kernel.py"
     kernels = [
         kernel_entry("K1 setconv_fwd", "npf_gwwaveform_tpu_torch/csrc/setconv_fwd.cu",
-                     "npf_gwwaveform_tpu/ops/pallas/setconv_kernel.py:45", train_launches[0],
+                     "npf_gwwaveform_tpu/ops/pallas/setconv_kernel.py:45",
+                     train_path["launches"][0],
                      k1_rows, ("ctx->grid train", "grid->trgt train"), launches_by_path(0)),
         kernel_entry("K2 mlp_chain_fwd", "npf_gwwaveform_tpu_torch/csrc/mlp_chain_fwd.cu",
-                     f"{mlp}:63", train_launches[1], k2_rows, ("decoder train",),
+                     f"{mlp}:63", train_path["launches"][1], k2_rows, ("decoder train",),
                      launches_by_path(1)),
         kernel_entry("K3 mlp_chain_bwd", "npf_gwwaveform_tpu_torch/csrc/mlp_chain_bwd.cu",
-                     f"{mlp}:83", train_launches[2], k3_rows, ("decoder train",),
+                     f"{mlp}:83", train_path["launches"][2], k3_rows, ("decoder train",),
                      launches_by_path(2)),
         kernel_entry("K2-bf16 mlp_chain_fwd_bf16",
                      "npf_gwwaveform_tpu_torch/csrc/mlp_chain_fwd_bf16.cu", f"{mlp}:63",
-                     train16_launches[3], k2b_rows, ("decoder train",), launches_by_path(3)),
+                     train16_path["launches"][3], k2b_rows, ("decoder train",), launches_by_path(3)),
         kernel_entry("K3-bf16 mlp_chain_bwd_bf16",
                      "npf_gwwaveform_tpu_torch/csrc/mlp_chain_bwd_bf16.cu", f"{mlp}:83",
-                     train16_launches[4], k3b_rows, ("decoder train",), launches_by_path(4)),
+                     train16_path["launches"][4], k3b_rows, ("decoder train",), launches_by_path(4)),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

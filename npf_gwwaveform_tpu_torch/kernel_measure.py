@@ -8,6 +8,12 @@ yardstick of speed that the port never calls (`cublas_chain_ms`), are here
 too, so that `chip_smoke.py`, `kernel_ab` and the CPU tests hold the kernels
 to the same numbers.
 
+The profilers and `chip_smoke.py` trace a step with the same helpers:
+`measure_step` (host-clock wall times and one `torch.profiler` trace),
+`event_ms`, `top_kernels`, and `traced_launches`, which counts each hand
+kernel's wrapper launches in a trace by the kernels `ops.kernels.KERNELS`
+names.
+
 `bound` is the larger of two times: the bytes that the function must move
 (each input read once, each output written once) over the card's memory
 rate, and the operations that it does over the card's peak rate for their
@@ -21,9 +27,15 @@ weights and biases are read, and dW/db written, as float32 parameters.
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
+from .ops.kernels import KERNELS, hand_kernel_id
 from .ops.kernels.mlp_chain import _bf16_forward
 from .utils.helpers import linspace
 
@@ -31,7 +43,8 @@ __all__ = ["PEAK_BYTES_PER_S", "PEAK_F32_FLOP_PER_S", "PEAK_BF16_TC_FLOP_PER_S",
            "k1_bound", "k2_bound", "k3_bound", "k1_inputs", "k2_inputs", "k3_inputs", "K2_CASES",
            "K2_BF16_SUM_TOL", "K2_BF16_MAX_SHARE", "K3_BF16_DX_ULPS", "K3_BF16_DX_SHARE",
            "K3_BF16_DW_RTOL", "bf16_ulp", "ulp_report", "k2_bf16_sum_scale", "k2_bf16_compare",
-           "k2_bf16_report", "k2_bf16_ok", "k3_bf16_report", "k3_bf16_ok", "cublas_chain_ms"]
+           "k2_bf16_report", "k2_bf16_ok", "k3_bf16_report", "k3_bf16_ok", "cublas_chain_ms",
+           "measure_step", "event_ms", "top_kernels", "hand_kernels", "traced_launches"]
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -307,3 +320,64 @@ def cublas_chain_ms(x, w0, b0, wh, bh, wout, bout=None, is_res=False, g=None, re
         g = cast(g)
         return time_ms(lambda: torch.autograd.grad(
             _chain(x, w0, b0, whs, bhs, wout, bout, is_res), leaves, g), reps)
+
+
+def measure_step(fn, reps: int) -> dict:
+    """fn() (ending in a synchronise) timed `reps` times on the host clock,
+    then once traced: wall times, the traced kernels and their device time."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        traced_wall = time.perf_counter() - t0
+    # the profiler mirrors each record_function range (ours and the
+    # optimizer's) as a device-side annotation spanning its kernels: not a kernel
+    ranges = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CPU}
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and e.key not in ranges]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    wall_ms = 1e3 * float(np.median(walls))
+    return dict(wall_ms=wall_ms, reps=reps, traced_wall_ms=1e3 * traced_wall,
+                device_ms=device_ms, busy_share=device_ms / (1e3 * traced_wall),
+                busy_share_untraced=device_ms / wall_ms, n_launches=sum(e.count for e in kernels),
+                n_kernels=len(kernels), kernels=kernels, events=prof.events())
+
+
+def event_ms(fn) -> float:
+    """Device time from one CUDA event to the next around fn()."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def top_kernels(kernels, device_ms: float, n: int) -> list:
+    """The first `n` of a trace's kernels (`measure_step`'s, sorted): name,
+    device ms, calls and share of `device_ms`."""
+    return [dict(name=e.key[:120], device_ms=e.self_device_time_total / 1e3, calls=e.count,
+                 share=e.self_device_time_total / 1e3 / device_ms if device_ms else 0.0)
+            for e in kernels[:n]]
+
+
+def hand_kernels(kernels) -> list:
+    """The hand kernels among a trace's kernels: name, device ms, calls."""
+    return [dict(name=e.key[:120], device_ms=e.self_device_time_total / 1e3, calls=e.count)
+            for e in kernels if hand_kernel_id(e.key) is not None]
+
+
+def traced_launches(prof) -> tuple:
+    """Each wrapper's launches among a `torch.profiler` trace's kernels, in
+    `KERNELS`' order: the calls of the kernels that mark its launches."""
+    n = dict.fromkeys(KERNELS, 0)
+    for e in prof.key_averages():
+        kid = hand_kernel_id(e.key, marks_only=True) if e.device_type == DeviceType.CUDA else None
+        if kid is not None:
+            n[kid] += e.count
+    return tuple(n.values())

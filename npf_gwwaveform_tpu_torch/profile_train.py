@@ -1,36 +1,39 @@
 """Where the time of one train step of the flagship configuration goes on the
-card.
+card, for the eager step and for the step replayed from its CUDA graph.
 
     python -m npf_gwwaveform_tpu_torch.profile_train [--batch 32] [--reps 10] [--bf16]
 
-Builds the flagship model from the port's init (seed 0) and takes `--reps`
-train steps to warm up, timing each on the host clock (each ends in a device
-synchronise), then traces one more under `torch.profiler` (CPU and CUDA
-activity). Each step is annotated data (waveforms and split), forward (model
-and loss, train mode), backward, optimizer (Adam): the device time of the
-kernels launched inside each range is attributed to it, and backward is the
-rest, since autograd launches its kernels from its own thread; the part of
-it in the two SetConv backwards (stock PyTorch ops, a named range) is
-reported too. Prints the
-step's wall time, the device time, the busy share (device time over the
-traced step's wall time, and over the untraced median), the split by phase
-and the kernels with the most device time, then one JSON line with the same
-numbers. `--bf16` trains in bfloat16 compute. Writes nothing.
+Builds the flagship model from the port's init (seed 0). First the eager
+step: `--reps` steps timed on the host clock (each ends in a device
+synchronise), then one more traced under `torch.profiler` (CPU and CUDA
+activity). Each eager step is annotated data (waveforms and split), forward
+(model and loss, train mode), backward, optimizer (Adam): the device time of
+the kernels launched inside each range is attributed to it, and backward is
+the rest, since autograd launches its kernels from its own thread; the part
+of it in the two SetConv backwards (stock PyTorch ops, a named range) is
+reported too. Then the same step captured in a CUDA graph
+(`Trainer.generated_graph`, as `train_gw` runs it): `--reps` replays timed
+the same way, one traced, and one timed between CUDA events. For each it
+prints the step's wall time, the device time (the traced kernels' sum), the
+busy share (device time over the traced step's wall time, and over the
+untraced median) and the kernels with the most device time; for the graph
+also how many kernels one replay launched and the hand kernels among them.
+Then one JSON line with both. `--bf16` trains in bfloat16 compute. Writes
+nothing.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import time
 
-import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import record_function
 
 from .configs import gw_train_summary
 from .data.gw import GWParameterSpace
+from .kernel_measure import event_ms, hand_kernels, measure_step, top_kernels
 from .score import make_eval_batch, run_generator
 from .train_gw import build_trainer
 from .utils.helpers import set_numerics
@@ -71,49 +74,54 @@ def main(argv=None) -> dict:
             trainer.state.optimizer.step()
         torch.cuda.synchronize()
 
-    walls = []
-    for _ in range(args.reps):
-        t0 = time.perf_counter()
-        one_step()
-        walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one_step()
-        traced_wall = time.perf_counter() - t0
-    # the profiler mirrors each record_function range (ours and the
-    # optimizer's) as a device-side annotation spanning its kernels: not a kernel
-    ranges = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CPU}
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0 and e.key not in ranges]
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    phases = {p: sum(e.device_time_total for e in prof.events()
+    eager = measure_step(one_step, args.reps)
+    kernels, device_ms = eager.pop("kernels"), eager["device_ms"]
+    phases = {p: sum(e.device_time_total for e in eager["events"]
                      if e.name == p and e.device_type == DeviceType.CPU) / 1e3
               for p in PHASES}
     phases["backward"] = device_ms - sum(phases.values())
     phases["of which setconv backward"] = sum(
-        e.device_time_total for e in prof.events()
+        e.device_time_total for e in eager.pop("events")
         if e.name == SETCONV_BWD and e.device_type == DeviceType.CPU) / 1e3
-    wall_ms = 1e3 * float(np.median(walls))
-    print(f"{torch.cuda.get_device_name(0)}: one train step at batch {args.batch}: "
-          f"{wall_ms:.3f} ms wall (median of {args.reps}, untraced, "
-          f"{1e3 * args.batch / wall_ms:.0f} wf/s); traced {1e3 * traced_wall:.3f} ms wall, "
-          f"{device_ms:.3f} ms device time; busy share {device_ms / (1e3 * traced_wall):.3f} "
-          f"of the traced step, "
-          f"{device_ms / wall_ms:.3f} of the untraced one")
+    eager["phases_device_ms"] = phases
+    eager["top"] = top_kernels(kernels, device_ms, args.top)
+    _print(f"eager train step at batch {args.batch}", eager, args)
     print("  device ms by phase: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
-    top = []
-    for e in kernels[:args.top]:
-        share = e.self_device_time_total / 1e3 / device_ms if device_ms else 0.0
-        print(f"  {e.self_device_time_total / 1e3:9.4f} ms  {share:6.1%}  x{e.count:<4d} "
-              f"{e.key[:90]}")
-        top.append(dict(name=e.key[:120], device_ms=e.self_device_time_total / 1e3, calls=e.count))
-    res = dict(bf16=args.bf16, batch=args.batch, wall_ms=wall_ms, traced_wall_ms=1e3 * traced_wall,
-               device_ms=device_ms, busy_share=device_ms / (1e3 * traced_wall),
-               busy_share_untraced=device_ms / wall_ms,
-               phases_device_ms=phases, n_kernels=len(kernels), top=top)
+
+    def sample(generator):
+        return make_eval_batch(space.sample(args.batch, generator), gen, space)
+
+    graph = trainer.generated_graph(sample)
+    graph.replay()  # the capture
+
+    def replay():
+        graph.replay()
+        torch.cuda.synchronize()
+
+    graphed = measure_step(replay, args.reps)
+    kernels = graphed.pop("kernels")
+    del graphed["events"]
+    graphed["event_ms"] = event_ms(graph.replay)
+    graphed["top"] = top_kernels(kernels, graphed["device_ms"], args.top)
+    graphed["hand_kernels"] = hand_kernels(kernels)
+    _print(f"graphed train step at batch {args.batch}", graphed, args)
+    res = dict(bf16=args.bf16, batch=args.batch, device=torch.cuda.get_device_name(0),
+               eager=eager, graphed=graphed)
     print(json.dumps(res))
     return res
+
+
+def _print(label: str, r: dict, args) -> None:
+    print(f"{torch.cuda.get_device_name(0)}: {label}: {r['wall_ms']:.3f} ms wall (median of "
+          f"{r['reps']}, untraced, {1e3 * args.batch / r['wall_ms']:.0f} wf/s); traced "
+          f"{r['traced_wall_ms']:.3f} ms wall, {r['device_ms']:.3f} ms device time in "
+          f"{r['n_launches']} kernel launches; busy share {r['busy_share']:.3f} of the traced "
+          f"step, {r['busy_share_untraced']:.3f} of the untraced one"
+          + (f"; {r['event_ms']:.3f} ms between CUDA events" if "event_ms" in r else ""))
+    for e in r["top"]:
+        print(f"  {e['device_ms']:9.4f} ms  {e['share']:6.1%}  x{e['calls']:<4d} {e['name'][:90]}")
+    for e in r.get("hand_kernels", []):
+        print(f"  hand kernel x{e['calls']}: {e['device_ms']:.4f} ms  {e['name'][:90]}")
 
 
 if __name__ == "__main__":

@@ -7,7 +7,10 @@ over the run's `duration` (1 s unless the summary says otherwise), keeps
 otherwise: every 4th of 1024) on x in [-1, 1], splits them into
 a context of U{0..n_context} points per waveform and all points as targets,
 conditions on the normalised parameters, and records per waveform the NPML
-log-likelihood and the white-noise mismatch of the predictive mean.
+log-likelihood and the white-noise mismatch of the predictive mean. On
+CUDA, where enough batches follow to pay for its capture, the first batch
+runs eagerly and every later batch of 256 is one replay of a CUDA graph
+that holds all of it, the waveforms and the split included (`batch_graph`).
 
     python -m npf_gwwaveform_tpu_torch.score --run-dir DIR [--n-test N]
         [--thetas-from-run | --thetas-from RUN_DIR] [--device cuda] [--bf16]
@@ -39,13 +42,20 @@ from .data.gw import GWParameterSpace, GWWaveformGenerator, mismatch
 from .losses import CNPFLoss
 from .models.convnp import ConvCNP
 from .training.checkpoint import load_run_params, params_from_flax
+from .utils.cuda_graph import StepGraph
 from .utils.helpers import linspace, set_numerics
 
 EVAL_BATCH = 256
+# the fewest replays of the batch graph that pay for its capture: on an H100
+# a capture took 33-113 ms and a replay saved 5.5-6.8 ms against an eager
+# batch, 6-18 replays' worth, in float32 and bf16 (`profile_score` prints
+# both and their ratio); at 2048 waveforms (seven replays) a graphed
+# `score_run` was no faster than the eager one
+GRAPH_MIN_REPLAYS = 20
 SAMPLE_RATE = 1024.0  # experiments/reproduce_gw.py builds its generator at 1024 Hz
 
 __all__ = ["load_model", "read_run_thetas", "run_generator", "make_eval_batch", "eval_splitter",
-           "score_batch", "score_run", "summary_metrics", "write_scores"]
+           "score_batch", "batch_graph", "score_run", "summary_metrics", "write_scores"]
 
 
 def load_model(run_dir: str, device="cuda", use_kernels: bool = True,
@@ -99,6 +109,18 @@ def score_batch(model, splitter, generator, theta, gen, space, n_points: int = 2
     return ll, mm, mm_zdraw, out
 
 
+def batch_graph(model, splitter, generator, theta, gen, space, n_points: int = 256) -> StepGraph:
+    """`score_batch`'s (log-likelihood, mismatch, per-draw mismatch) for
+    thetas shaped as `theta`, as a CUDA graph with `generator` registered: a
+    replay takes a batch's thetas and draws its split as the next eager
+    batch would. It takes no warm-up calls: make it after an eager
+    `score_batch` of the same model and shapes, which made what the capture
+    needs (under `torch.inference_mode` a batch moves no state but the
+    generator). Run it under `torch.inference_mode`."""
+    return StepGraph(lambda t: score_batch(model, splitter, generator, t, gen, space, n_points)[:3],
+                     [theta.clone()], model, [generator], warmup_calls=0)
+
+
 def eval_splitter(n_context: int) -> CntxtTrgtSplitter:
     """The eval split: per-waveform context counts U{0..n_context}."""
     return CntxtTrgtSplitter(
@@ -130,9 +152,14 @@ def score_run(run_dir: str, n_test: int = 2048, thetas_from: Optional[str] = Non
               dtype: Optional[torch.dtype] = None) -> dict:
     """Score `n_test` waveforms of the run, on thetas drawn from `seed`, or
     on those recorded in the `mismatch_theta.csv` of the run directory
-    `thetas_from` (`run_dir` itself included), in compute `dtype`. Returns `summary_metrics`,
-    the short names `mean_ll` and `median_mismatch`, and the per-waveform
-    arrays `ll`, `mismatch`, `mismatch_zdraw` and `theta` [n, 4]."""
+    `thetas_from` (`run_dir` itself included), in compute `dtype`. On CUDA,
+    when at least `GRAPH_MIN_REPLAYS` batches of 256 follow the first, the
+    first runs eagerly and warms up `batch_graph`, and the rest replay it;
+    every other batch (the CPU's, a last one short of 256, too few to pay
+    for a capture) runs eagerly. Returns `summary_metrics`, the short names
+    `mean_ll` and `median_mismatch`, the per-waveform arrays `ll`,
+    `mismatch`, `mismatch_zdraw` and `theta` [n, 4], and `graph`: the batch
+    graph, or None."""
     device = torch.device(device)
     with open(os.path.join(run_dir, "summary.json")) as f:
         summary = json.load(f)
@@ -145,12 +172,21 @@ def score_run(run_dir: str, n_test: int = 2048, thetas_from: Optional[str] = Non
         thetas = torch.from_numpy(read_run_thetas(thetas_from)[:n_test]).to(device)
     else:
         thetas = space.sample(n_test, generator)
+    graphed = device.type == "cuda" and thetas.shape[0] // EVAL_BATCH - 1 >= GRAPH_MIN_REPLAYS
+    graph = None
+
     lls, mms, mzs = [], [], []
     t0 = time.perf_counter()
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         for i in range(0, thetas.shape[0], EVAL_BATCH):
-            ll, mm, mz, _ = score_batch(model, splitter, generator, thetas[i:i + EVAL_BATCH], gen,
-                                        space, n_points)
+            theta = thetas[i:i + EVAL_BATCH]
+            if graph is not None and theta.shape[0] == EVAL_BATCH:
+                ll, mm, mz = (t.clone() for t in graph.replay(theta))
+            else:
+                ll, mm, mz = score_batch(model, splitter, generator, theta, gen, space,
+                                         n_points)[:3]
+            if graphed and graph is None:  # after the eager batch above
+                graph = batch_graph(model, splitter, generator, theta, gen, space, n_points)
             lls.append(ll)
             mms.append(mm)
             mzs.append(mz)
@@ -170,6 +206,7 @@ def score_run(run_dir: str, n_test: int = 2048, thetas_from: Optional[str] = Non
         "mismatch": mm,
         "mismatch_zdraw": mz,
         "theta": thetas.cpu().numpy(),
+        "graph": graph,
     }
 
 
@@ -206,7 +243,7 @@ def main(argv=None) -> dict:
     res = score_run(args.run_dir, args.n_test,
                     args.run_dir if args.thetas_from_run else args.thetas_from, args.device,
                     args.seed, dtype=torch.bfloat16 if args.bf16 else None)
-    res = {k: v for k, v in res.items() if not isinstance(v, np.ndarray)}
+    res = {k: v for k, v in res.items() if k != "graph" and not isinstance(v, np.ndarray)}
     print(json.dumps(res))
     return res
 

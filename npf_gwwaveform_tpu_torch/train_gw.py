@@ -12,7 +12,9 @@ Each step draws `--batch` waveforms on the device (the scorer's generator
 and stride: 1024 Hz over 1 s, every 4th sample), splits them with one context
 count U{0..192} for the whole batch (the JAX training splitter), and takes one
 Adam step on the CNPF loss, the learning rate decaying x`--decay-lr` over
-`steps // 1562` epochs of 1562 steps. The run directory
+`steps // 1562` epochs of 1562 steps. On CUDA the whole step is captured
+once in a CUDA graph and replayed, in chunks of 50 steps as
+`reproduce_gw.py` scans them; on the CPU it runs eagerly. The run directory
 `<out>/GW_time_cond_film_ctx192_d128/ConvCNP/run_<run>` gets the files
 `reproduce_gw.py` writes: `history.json` (step, seconds since the first
 step, mean train loss of the last 50 steps), `params.msgpack` and
@@ -81,29 +83,38 @@ def build_trainer(summary: dict, steps: int, device, lr: float = 1e-3, decay_lr:
 def train(trainer: Trainer, summary: dict, steps: int, batch: int,
           time_steps: bool = False) -> tuple:
     """`steps` train steps on fresh waveforms -> (history, per-step losses
-    [steps] on the device, seconds, per-step seconds). With `time_steps` each
-    step ends in a device synchronise and its host-clock time is recorded;
-    otherwise the host runs ahead and the list is empty."""
+    [steps] on the device, seconds, per-step seconds). Each step draws its
+    waveforms on the device (`Trainer.train_steps_generated`: on CUDA the
+    whole step, sampling included, is one CUDA-graph replay), in chunks of
+    min(50, steps) steps as `reproduce_gw.py` scans them; the host reads the
+    losses once a chunk, for the history. With `time_steps` each step ends
+    in a device synchronise and its host-clock time is recorded; otherwise
+    the host runs ahead within a chunk and the list is empty."""
     gen, space = run_generator(summary), GWParameterSpace()
     n_points = summary.get("n_points", 256)
+
+    def sample(generator):
+        return make_eval_batch(space.sample(batch, generator), gen, space, n_points)
+
     device = trainer.state.generator.device
+    sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None
     losses = torch.empty((steps,), device=device)
     history, step_seconds = [], []
+    chunk = min(HISTORY_EVERY, steps)
     t0 = time.perf_counter()
-    for i in range(steps):
-        t_step = time.perf_counter()
-        theta = space.sample(batch, trainer.state.generator)
-        x, y, cond = make_eval_batch(theta, gen, space, n_points)
-        losses[i] = trainer.train_step_cond(x, y, cond)["loss"]
+    for start in range(0, steps, chunk):
+        end = min(start + chunk, steps)
         if time_steps:
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            step_seconds.append(time.perf_counter() - t_step)
-        if (i + 1) % HISTORY_EVERY == 0 or i + 1 == steps:
-            mean = losses[i + 1 - min(HISTORY_EVERY, i + 1):i + 1].mean().item()
-            history.append({"step": i + 1, "dur": time.perf_counter() - t0, "train_loss": mean})
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+            for i in range(start, end):
+                t_step = time.perf_counter()
+                losses[i:i + 1] = trainer.train_steps_generated(sample, 1)
+                sync()
+                step_seconds.append(time.perf_counter() - t_step)
+        else:
+            losses[start:end] = trainer.train_steps_generated(sample, end - start)
+        mean = losses[end - min(HISTORY_EVERY, end):end].mean().item()
+        history.append({"step": end, "dur": time.perf_counter() - t0, "train_loss": mean})
+    sync()
     return history, losses, time.perf_counter() - t0, step_seconds
 
 

@@ -41,13 +41,14 @@ def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
     """float32 `linspace` with `jnp.linspace`'s arithmetic: start*(1-s) +
     stop*s with s = i/(num-1) in float32, the last point exactly `stop`.
     Equal to that arithmetic op by op; XLA's fused evaluation of
-    `jnp.linspace` may round a point one ulp differently."""
+    `jnp.linspace` may round a point one ulp differently. Made on `device`
+    without a copy from the host, so that a CUDA graph can capture it."""
     if num < 2:
         return torch.full((num,), start, dtype=torch.float32, device=device)
     div = num - 1
     step = torch.arange(div, dtype=torch.float32, device=device) / div
-    start_t = torch.tensor(start, dtype=torch.float32, device=device)
-    stop_t = torch.tensor(stop, dtype=torch.float32, device=device)
+    start_t = torch.full((), start, dtype=torch.float32, device=device)
+    stop_t = torch.full((), stop, dtype=torch.float32, device=device)
     out = start_t * (1 - step) + stop_t * step
     return torch.cat([out, stop_t.reshape(1)])
 

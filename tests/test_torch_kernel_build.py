@@ -11,6 +11,7 @@ there."""
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
@@ -22,6 +23,7 @@ from npf_gwwaveform_tpu_torch import _build
 from npf_gwwaveform_tpu_torch.kernel_ab import k2_errs, ptxas_report
 from npf_gwwaveform_tpu_torch.kernel_measure import bound, k1_bound, k2_bound, k3_bound
 from npf_gwwaveform_tpu_torch.models.convnp import ConvCNP
+from npf_gwwaveform_tpu_torch.ops.kernels import KERNELS, hand_kernel_id
 from npf_gwwaveform_tpu_torch.score import eval_splitter, score_batch, summary_metrics
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace, GWWaveformGenerator
 
@@ -35,6 +37,23 @@ def test_sources_and_header_are_in_the_build():
     headers = {os.path.basename(p) for p in _build.headers()}
     assert {"tile_fma.cuh", "mlp_chain_bf16.cuh", "mlp_chain_bf16_fma.cuh",
             "mlp_chain_bf16_plan.h"} <= headers
+
+
+def test_kernel_map_names_every_global_function_of_the_sources():
+    """`ops.kernels.KERNELS` (what the profilers and chip_smoke.py count a
+    trace's kernels by) names each `__global__` function of csrc/*.cu once,
+    and a trace's demangled names map back to their wrapper's id."""
+    found = set()
+    for path in _build.sources():
+        with open(path) as f:
+            found |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                                    f.read()))
+    named = [fn for k in KERNELS.values() for fn in k.marks + k.helpers]
+    assert len(named) == len(set(named)) and set(named) == found
+    assert hand_kernel_id("void mlp_chain_bwd_bf16_rows_tc<2>(__nv_bfloat16 const*, int)") == "K3-bf16"
+    assert hand_kernel_id("mlp_chain_bwd_rows(float const*, float const*, int)") == "K3"
+    assert hand_kernel_id("void mlp_chain_bwd_wgrad(float const*)", marks_only=True) is None
+    assert hand_kernel_id("void at::native::elementwise_kernel<128, 4>(int)") is None
 
 
 def test_bf16_plan_queries_are_bound():
