@@ -9,12 +9,17 @@ Phases, each announced with the seconds elapsed:
   2. build: the kernels with one nvcc call (ptxas resource report);
   3. K1 (SetConv forward) against its plain version at the two path shapes of
      the scoring batch and of the train step, with the paths' own masks
-     (U{0..192} of 256 context points real, every grid point real), and at
-     three other cases: random masks at the grid->targets shape, K = 5000
-     keys, and the long-waveform width C = 512 (K = 2048, Q = 1536); two
-     launches must give the same bits;
+     (U{0..192} of 256 context points real, every grid point real), at the
+     long-waveform scoring batch's two shapes (B = 256; 2048 context points
+     of which U{0..1024} real onto the 1536-point grid, C = 1, and the grid
+     onto 2048 targets, C = 128, with the long k=37 run's length scales),
+     and at three other cases: random masks at the grid->targets shape, K =
+     5000 keys, and the width C = 512 (K = 2048, Q = 1536); two launches
+     must give the same bits;
   4. K2 (fused MLP chain forward) against its plain version at the scoring
-     and training decoder shapes, and at the edges of its design: L1=0, a
+     and training decoder shapes, at the long-waveform scoring batch's
+     (M = 256 * 2048 = 524,288 rows, the long k=37 run's decoder), and at
+     the edges of its design: L1=0, a
      ragged residual chain with C != H and no biases, C > H, widths over 128
      (H = 256, and 320 with the residual), O on each side of the small-O
      output (8 and 9), 128-row tiles with a two-pass output and with two
@@ -67,7 +72,24 @@ Phases, each announced with the seconds elapsed:
      its plain version;
  11. the bf16 training path: phase 8's graph checks in bfloat16 compute,
      500 graphed steps at batch 32 from seed 0, that the loss falls, one step
-     of the kernel path against the plain-kernel path, and the launches.
+     of the kernel path against the plain-kernel path, and the launches;
+ 12. the other 18 time-domain ConvCNP runs in `results/` (dilated CNN,
+     additive conditioning, UnetCNN, the 2 s long waveforms with k=37 and
+     with the UnetCNN, and the flat-CNN runs): each scored in float32 with
+     `score_run` on its own 2048 recorded thetas, graphed as in phase 7,
+     through K1 and K2 (the wrappers' counts at the eager batch and the
+     capture), held to its bands (`run_report.score_bands`, from the run's
+     recorded scores) and printed beside its recorded scores; the launches
+     of the long k=37 and long UnetCNN paths counted from a traced replay
+     of each one's own graph; one long-waveform batch of each timed eagerly
+     and replayed;
+ 13. decile checkpoints and resuming: 300 graphed steps of the flagship
+     configuration through `train_gw.run` (six chunks of 50, checkpoints
+     after chunks 1-5), each checkpoint read back bit for bit as it is
+     written; a continuation resumed from the last checkpoint into run
+     index 1 (its first forward, before any step, equal to the
+     checkpoint's model's bit for bit; `resumed_from` recorded), and a
+     resume into the run's own directory refused.
 It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -91,7 +113,7 @@ from torch.profiler import ProfilerActivity, profile
 from npf_gwwaveform_tpu_torch import _build
 from npf_gwwaveform_tpu_torch import score as score_mod
 from npf_gwwaveform_tpu_torch import train_gw
-from npf_gwwaveform_tpu_torch.configs import gw_train_summary
+from npf_gwwaveform_tpu_torch.configs import gw_model_from_summary, gw_train_summary
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.kernel_measure import (
     K2_BF16_SUM_TOL, K2_CASES, cublas_chain_ms, k1_bound, k1_inputs, k2_bf16_ok, k2_bf16_report,
@@ -105,15 +127,29 @@ from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
     fused_relu_mlp, fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain, fused_relu_mlp_plain,
 )
 from npf_gwwaveform_tpu_torch.ops.kernels.setconv import setconv_exprbf_fwd, setconv_exprbf_plain
+from npf_gwwaveform_tpu_torch.run_report import recorded_scores, score_bands, scored_runs
 from npf_gwwaveform_tpu_torch.score import (
     batch_graph, eval_splitter, load_model, make_eval_batch, read_run_thetas, run_generator,
     score_batch, score_run,
 )
+from npf_gwwaveform_tpu_torch.training.checkpoint import load_run_params, params_from_flax
 from npf_gwwaveform_tpu_torch.utils.cuda_graph import WARMUP_CALLS
 from npf_gwwaveform_tpu_torch.utils.helpers import linspace, set_numerics
 
-RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "results", "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1")
+RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results")
+RUN_DIR = os.path.join(RESULTS, "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1")
+# the other time-domain ConvCNP runs that hold parameters, each scored on its
+# own recorded thetas and held to its own bands (phase 12)
+OTHER_RUNS = tuple(r for r in scored_runs(RESULTS) if r != RUN_DIR)
+assert len(OTHER_RUNS) == 18, OTHER_RUNS
+# the long paths traced and timed
+LONG_K37 = os.path.join(RESULTS, "GW_time_cond_film_ctx1024_d512_k37_T2s_np2048_pallas",
+                        "ConvCNP", "run_3")
+LONG_UNET = os.path.join(RESULTS, "GW_time_cond_film_ctx1024_d512_unet_T2s_np2048_pallas",
+                         "ConvCNP", "run_1")
+# decile checkpoints: six chunks of 50 steps, checkpoints after chunks 1-5;
+# then a continuation of two chunks from the last one
+RESUME_STEPS, RESUMED_STEPS = 300, 100
 N_TEST = 2048
 # the recorded run scored mean LL 895.10 and median mismatch 0.00218 on these
 # thetas; bootstrap 99% intervals at 1024 waveforms are [887.6, 901.8] and
@@ -687,7 +723,9 @@ def eager_scores(n, dtype=None, recorded=True):
     not `recorded`, of `n` drawn as `score_run` draws them) with no graph:
     a loop of `score_batch` on a generator seeded as `score_run` seeds it,
     timed as `score_run` times its loop -> {ll, mismatch, mismatch_zdraw,
-    n, mean_ll, seconds}."""
+    n, mean_ll, seconds}. Like `score_run` it scores `score.n_scored(n)`
+    waveforms: whole batches of 256 from 256 on."""
+    n = score_mod.n_scored(n)
     with open(os.path.join(RUN_DIR, "summary.json")) as f:
         summary = json.load(f)
     model = load_model(RUN_DIR, "cuda", dtype=dtype)
@@ -712,7 +750,7 @@ def eager_scores(n, dtype=None, recorded=True):
 def score_timing(smi, dtype=None) -> dict:
     """`score_run` end to end (the seconds of its loop, graphed where enough
     batches follow) against the eager loop (`eager_scores`): at n_test 2048
-    and 300 on the recorded thetas, and on drawn thetas at the least n_test
+    and 300 (both score 256) on the recorded thetas, and on drawn thetas at the least n_test
     that `score_run` graphs, (GRAPH_MIN_REPLAYS + 1) batches of 256; each
     in the order score_run, eager, eager, score_run -> {n: {"score_run": [s,
     s], "eager": [s, s], "graphed": whether score_run replayed a graph}}."""
@@ -727,6 +765,8 @@ def score_timing(smi, dtype=None) -> dict:
             else:
                 out = score_run(RUN_DIR, n, thetas_from=RUN_DIR if recorded else None,
                                 device="cuda", dtype=dtype)
+                if out["n"] != score_mod.n_scored(n):
+                    raise AssertionError(f"score_run scored {out['n']} of n_test {n}")
                 t["score_run"].append(out["seconds"])
                 t["graphed"] = out["graph"] is not None
         print(f"score_run end to end{tag}, n_test {n} ({'graphed' if t['graphed'] else 'eager'}): "
@@ -748,12 +788,12 @@ def check_graph_scores(graphed, eager, tag=""):
         raise AssertionError(f"graphed scoring{tag} disagrees with eager scoring")
 
 
-def graphed_batch_ms(model, splitter, theta, wave, space, reps=5):
+def graphed_batch_ms(model, splitter, theta, wave, space, reps=5, n_points=256):
     """Median host-clock time of a synchronised replay of the batch's graph
     (after an eager batch of the same model and shapes; run under inference
     mode)."""
     graph = batch_graph(model, splitter, torch.Generator(device="cuda").manual_seed(1), theta,
-                        wave, space)
+                        wave, space, n_points)
     graph.replay(theta)  # the capture
     t = []
     for _ in range(reps):
@@ -763,6 +803,160 @@ def graphed_batch_ms(model, splitter, theta, wave, space, reps=5):
         torch.cuda.synchronize()
         t.append(time.perf_counter() - t0)
     return 1e3 * float(np.median(t))
+
+
+def check_run_scores(runs, smi) -> dict:
+    """Phase 12: each run scored on its own 2048 recorded thetas, graphed,
+    held to its bands; the long paths' launches from a traced replay of each
+    one's own graph. -> {"long k37" and "long unet": their `path_launches`}."""
+    misses, paths = [], {}
+    for run_dir in runs:
+        name = os.path.relpath(run_dir, RESULTS)
+        rec_ll, rec_mm = recorded_scores(run_dir)
+        bands = score_bands(run_dir)
+        reset_counts()
+        with graph_every_run():
+            out = score_run(run_dir, N_TEST, thetas_from=run_dir, device="cuda")
+        counted = counts()
+        graph = out["graph"]
+        if graph is None or graph.replays != N_TEST // 256 - 1:
+            raise AssertionError(f"{name}: scored without its batch graph's {N_TEST // 256 - 1} "
+                                 "replays")
+        if counted != tuple(2 * c for c in SCORE_CALL):
+            raise AssertionError(f"{name}: wrapper launches {counted} at the eager batch and the "
+                                 f"capture, not {tuple(2 * c for c in SCORE_CALL)}")
+        if not (out["n"] == N_TEST and np.isfinite(out["ll"]).all()
+                and np.isfinite(out["mismatch"]).all()):
+            raise AssertionError(f"{name}: non-finite or missing per-waveform results")
+        (l0, l1), (m0, m1) = bands["mean_ll"], bands["median_mismatch"]
+        inside = l0 <= out["mean_ll"] <= l1 and m0 <= out["median_mismatch"] <= m1
+        print(f"{name}: mean LL {out['mean_ll']:.2f} in [{l0:.2f}, {l1:.2f}] (recorded "
+              f"{rec_ll.mean():.2f}); median mismatch {out['median_mismatch']:.5f} in [{m0:.5f}, "
+              f"{m1:.5f}] (recorded {np.median(rec_mm):.5f}); p90 {out['mismatch_p90']:.4f} "
+              f"(recorded {np.percentile(rec_mm, 90):.4f}), p99 {out['mismatch_p99']:.4f} "
+              f"(recorded {np.percentile(rec_mm, 99):.4f}), frac < 0.1 "
+              f"{out['frac_below_0.1']:.4f} (recorded {(rec_mm < 0.1).mean():.4f}); inside its "
+              f"bands {inside}; {out['seconds']:.2f}s")
+        if not inside:
+            misses.append(name)
+        if run_dir in (LONG_K37, LONG_UNET):
+            kind = "long k37" if run_dir == LONG_K37 else "long unet"
+            paths[kind] = path_launches(f"{kind} scoring", counted, graph, 2, SCORE_CALL)
+    print(f"{len(runs) - len(misses)} of {len(runs)} runs inside their bands ({smi})")
+    if misses:
+        raise AssertionError(f"outside their bands: {', '.join(misses)}")
+    return paths
+
+
+def long_batch_ms(run_dir, smi) -> dict:
+    """One 256-waveform batch of a long-waveform run on its first recorded
+    thetas: the eager batch's median host-clock time over 3 (synchronised),
+    then one replayed from its CUDA graph (median of 5)."""
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    model = load_model(run_dir, "cuda")
+    wave, space = run_generator(summary), GWParameterSpace()
+    splitter, n_points = eval_splitter(summary["n_context"]), summary["n_points"]
+    theta = torch.from_numpy(read_run_thetas(run_dir)[:256]).cuda()
+    t = []
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for _ in range(4):
+            g = torch.Generator(device="cuda").manual_seed(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            score_batch(model, splitter, g, theta, wave, space, n_points)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        eager = 1e3 * float(np.median(t[1:]))
+        graphed = graphed_batch_ms(model, splitter, theta, wave, space, n_points=n_points)
+    print(f"{os.path.relpath(run_dir, RESULTS)}: one 256-waveform batch eager {eager:.3f} ms "
+          f"(median of 3, host clock), replayed from its CUDA graph {graphed:.3f} ms (median of "
+          f"5); {smi}")
+    return dict(eager_ms=eager, graphed_ms=graphed)
+
+
+def check_resume() -> None:
+    """Phase 13: the decile checkpoints of a short run through `train_gw.run`,
+    each read back as it is written, and a continuation resumed from the
+    last one; the run's own directory refused."""
+    summary = gw_train_summary()
+    theta = torch.from_numpy(read_run_thetas(RUN_DIR)[:TRAIN_BATCH]).cuda()
+    wave, space = run_generator(summary), GWParameterSpace()
+    x, y, cond = make_eval_batch(theta, wave, space)
+    batch = eval_splitter(summary["n_context"])(torch.Generator(device="cuda").manual_seed(3),
+                                                x, y, condition=cond)
+
+    def forward(model):
+        model.eval()
+        with torch.inference_mode():
+            o = model(batch["X_cntxt"], batch["Y_cntxt"], batch["X_trgt"],
+                      mask_cntxt=batch["mask_cntxt"], mask_trgt=batch["mask_trgt"],
+                      condition=batch["condition"]).p_yCc
+        return o.loc.clone(), o.scale.clone()
+
+    real_save, real_train = train_gw.save_run_params, train_gw.train
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint = os.path.join(tmp, "last_checkpoint")
+        read_back = []
+
+        def save_and_read_back(run_dir, model):
+            state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            real_save(run_dir, model)
+            loaded = params_from_flax(*load_run_params(run_dir))
+            read_back.append(loaded.keys() == state.keys()
+                             and all(torch.equal(loaded[k], state[k]) for k in state))
+            if len(read_back) == len(train_gw.checkpoint_chunks(RESUME_STEPS)):
+                real_save(checkpoint, model)  # what a run lost after it leaves behind
+
+        train_gw.save_run_params = save_and_read_back
+        try:
+            run_dir, first = train_gw.run(RESUME_STEPS, TRAIN_BATCH, device="cuda", out=tmp,
+                                          n_test=256, thetas_from=RUN_DIR)
+        finally:
+            train_gw.save_run_params = real_save
+        n_ckpt = len(train_gw.checkpoint_chunks(RESUME_STEPS))
+        print(f"{RESUME_STEPS} graphed steps through train_gw.run: {len(read_back)} writes "
+              f"({n_ckpt} checkpoints and the run's own), each read back bit for bit "
+              f"{all(read_back)}; scored 256: mean LL {first['test_ll_per_wf']:.2f}")
+        if not (len(read_back) == n_ckpt + 1 and all(read_back)):
+            raise AssertionError("a checkpoint does not read back as it was written")
+
+        resumed_first = {}
+
+        def train_from(trainer, *args, **kw):
+            resumed_first["out"] = forward(trainer.model)  # before any step
+            return real_train(trainer, *args, **kw)
+
+        train_gw.train = train_from
+        try:
+            run_dir1, second = train_gw.run(RESUMED_STEPS, TRAIN_BATCH, device="cuda", out=tmp,
+                                            run_index=1, n_test=256, thetas_from=RUN_DIR,
+                                            resume_from=checkpoint)
+        finally:
+            train_gw.train = real_train
+        ckpt_model = gw_model_from_summary(summary).to("cuda")  # a checkpoint has no summary
+        train_gw.load_params_into(ckpt_model, checkpoint)
+        ref = forward(ckpt_model)
+        same = all(torch.equal(a, b) for a, b in zip(resumed_first["out"], ref))
+        with open(os.path.join(run_dir, "history.json")) as f:
+            hist0 = json.load(f)
+        with open(os.path.join(run_dir1, "history.json")) as f:
+            hist1 = json.load(f)
+        print(f"resumed into run_1 from the last checkpoint: resumed_from "
+              f"{second.get('resumed_from') == checkpoint}; its first forward equal to the "
+              f"checkpoint's model's bit for bit {same}; 50-step losses: the first run "
+              + ", ".join(f"{h['train_loss']:.1f}" for h in hist0) + "; the continuation "
+              + ", ".join(f"{h['train_loss']:.1f}" for h in hist1)
+              + f"; scored 256: mean LL {second['test_ll_per_wf']:.2f}")
+        if not (same and second.get("resumed_from") == checkpoint):
+            raise AssertionError("the resumed run does not start from its checkpoint")
+        try:
+            train_gw.run(RESUMED_STEPS, TRAIN_BATCH, device="cuda", out=tmp, run_index=1,
+                         resume_from=run_dir1)
+        except ValueError as e:
+            print(f"resuming into the run's own directory refused: {e}")
+        else:
+            raise AssertionError("a resume into the run's own directory was not refused")
 
 
 def kernel_entry(name, source, replaces, launches, rows, path_shapes, launches_by_path):
@@ -814,6 +1008,9 @@ def main() -> int:
     model_ctx = summary["n_context"]  # the path's contexts hold U{0..n_context} points
     sig_ctx = model.cntxt_to_induced.rbf.sigma().item()
     sig_trgt = model.induced_to_trgt.rbf.sigma().item()
+    long_model = load_model(LONG_K37, "cuda")  # the long-waveform shapes' length scales, weights
+    sig_ctx_long = long_model.cntxt_to_induced.rbf.sigma().item()
+    sig_trgt_long = long_model.induced_to_trgt.rbf.sigma().item()
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     phase("K1 setconv_fwd vs plain")
@@ -825,6 +1022,12 @@ def main() -> int:
                                       max_real=model_ctx)),
         ("grid->trgt train", k1_inputs(TRAIN_BATCH, 384, 256, 128, sig_trgt, gen,
                                        max_real="all")),
+        # the long-waveform scoring batch: 2048 points, U{0..1024} of them
+        # context, onto the 1536-point grid and back
+        ("ctx->grid long", k1_inputs(256, 2048, 1536, 1, sig_ctx_long, gen, [0, 7],
+                                     max_real=1024, n_points=2048)),
+        ("grid->trgt long", k1_inputs(256, 1536, 2048, 128, sig_trgt_long, gen, max_real="all",
+                                      n_points=2048)),
         # off the paths: random masks with an empty row, many keys, the
         # long-waveform runs' width (ROADMAP queue 1, item 3)
         ("grid->trgt random mask", k1_inputs(256, 384, 256, 128, sig_trgt, gen, [3])),
@@ -838,12 +1041,19 @@ def main() -> int:
              torch.stack([dec.linear_0.weight, dec.linear_1.weight, dec.linear_2.weight]),
              torch.stack([dec.linear_0.bias, dec.linear_1.bias, dec.linear_2.bias]),
              dec.out.weight, dec.out.bias)
+    ldec = long_model.decoder.module
+    long_dec_w = (ldec.to_hidden.weight, ldec.to_hidden.bias,
+                  torch.stack([ldec.linear_0.weight, ldec.linear_1.weight, ldec.linear_2.weight]),
+                  torch.stack([ldec.linear_0.bias, ldec.linear_1.bias, ldec.linear_2.bias]),
+                  ldec.out.weight, ldec.out.bias)
     with torch.inference_mode():
         dec_w = tuple(t.detach().contiguous() for t in dec_w)
+        long_dec_w = tuple(t.detach().contiguous() for t in long_dec_w)
         k2_rows = check_k2([
             ("decoder", k2_inputs(65536, 128, 128, 3, 2, True, gen, dec_w), False),
             ("decoder train", k2_inputs(TRAIN_BATCH * 256, 128, 128, 3, 2, True, gen, dec_w),
              False),
+            ("decoder long", k2_inputs(256 * 2048, 128, 128, 3, 2, True, gen, long_dec_w), False),
             *((name, k2_inputs(M, C, H, L1, O, biases, gen), is_res)
               for name, M, C, H, L1, O, is_res, biases in K2_CASES),
         ])
@@ -871,9 +1081,10 @@ def main() -> int:
     score_counted = counts()
     n_batches = -(-N_TEST // 256)
     print(f"scored {out['n']} waveforms in {out['seconds']:.2f}s: mean LL {out['mean_ll']:.3f}, "
-          f"median mismatch {out['median_mismatch']:.6f}, p90 {out['mismatch_p90']:.4f}, "
-          f"frac < 0.1 {out['frac_below_0.1']:.4f}; wrapper launches (K1, K2, K3, K2-bf16, "
-          f"K3-bf16) {score_counted} (the first batch and the capture of its graph)")
+          f"median mismatch {out['median_mismatch']:.6f}, p90 {out['mismatch_p90']:.4f}, p99 "
+          f"{out['mismatch_p99']:.4f}, frac < 0.1 {out['frac_below_0.1']:.4f}; wrapper launches "
+          f"(K1, K2, K3, K2-bf16, K3-bf16) {score_counted} (the first batch and the capture of "
+          "its graph)")
     if out["graph"] is None:
         raise AssertionError(f"score_run scored {N_TEST} thetas without its batch graph")
     score_path = path_launches("scoring", score_counted, out["graph"], 2, SCORE_CALL)
@@ -1135,8 +1346,21 @@ def main() -> int:
     train16_path = path_launches("bf16 training", train16_counted, train16_graph,
                                  WARMUP_CALLS + 1, TRAIN16_CALL)
 
+    del long_model
+    phase("the other 18 runs: each scored on its own 2048 recorded thetas through K1 and K2, "
+          "held to its bands")
+    long_paths = check_run_scores(OTHER_RUNS, smi)
+    long_ms = {kind: long_batch_ms(run_dir, smi)
+               for kind, run_dir in (("k37", LONG_K37), ("unet", LONG_UNET))}
+
+    phase(f"decile checkpoints and resuming: {RESUME_STEPS} graphed steps, then a continuation "
+          "from the last checkpoint")
+    check_resume()
+
     paths = {"score": score_path, "train": train_path, "score_bf16": score16_path,
-             "train_bf16": train16_path}
+             "train_bf16": train16_path, "score_long_k37": long_paths["long k37"],
+             "score_long_unet": long_paths["long unet"]}
+    print(f"long-waveform batch times (host clock; {smi}): " + json.dumps(long_ms))
 
     def launches_by_path(i):
         """Each path's launches of kernel i on the card (`path_launches`)."""

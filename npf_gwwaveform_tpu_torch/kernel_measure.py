@@ -124,17 +124,19 @@ def k3_bound(x, g, w0, b0, wh, bh, wout):
     return bound(n_bytes, 2 * M * (C * H + L1 * H * H) + 4 * M * n_w, flops)
 
 
-def k1_inputs(B, K, Q, C, sigma, gen, empty_rows=(), path=True, max_real=None):
+def k1_inputs(B, K, Q, C, sigma, gen, empty_rows=(), path=True, max_real=None,
+              n_points=256):
     """(keys, queries, values, mask, sigma) of one SetConv forward on the card:
-    keys and queries on the flagship paths' grids when `path` (256 context
-    points on [-1, 1], 384 grid points on [-1.5, 1.5]), else sorted random
-    keys and random queries; U{0..max_real} real keys per row (default K;
-    "all": every key, as the grid->targets SetConv's mask); the given rows
-    empty."""
+    keys and queries on a scoring path's grids when `path` (`n_points`
+    context points on [-1, 1]: 256 on the flagship path, 2048 on the long
+    waveforms'; any other size is the induced grid on [-1.5, 1.5]), else
+    sorted random keys and random queries; U{0..max_real} real keys per row
+    (default K; "all": every key, as the grid->targets SetConv's mask); the
+    given rows empty."""
     dev = "cuda"
     if path:
         def grid(n):
-            half = 1.0 if n == 256 else 1.5
+            half = 1.0 if n == n_points else 1.5
             return linspace(-half, half, n, device=dev)[None].expand(B, n).contiguous()
         keys, queries = grid(K), grid(Q)
     else:

@@ -2,9 +2,10 @@
 (n_z = 1 in train and eval mode); the counterpart of
 `npf_gwwaveform_tpu/models/base.py::NeuralProcessFamily`.
 
-x-encode -> `encode_globally` -> `trgt_dependent_representation` -> `decode`
-into a diagonal Gaussian with scale `min_sigma_pred + (1 - min_sigma_pred) *
-softplus`. Point sets are padded and carry boolean masks.
+x-encode -> `encode_globally` -> (with `cond_mode="add"`, the condition
+embedding added to every position of R) -> `trgt_dependent_representation`
+-> `decode` into a diagonal Gaussian with scale `min_sigma_pred + (1 -
+min_sigma_pred) * softplus`. Point sets are padded and carry boolean masks.
 
 `dtype` is the JAX model's compute dtype: None computes in float32;
 bfloat16 runs every module in bf16 compute, as the JAX package's modules
@@ -42,11 +43,12 @@ class NeuralProcessFamily(nn.Module):
 
     def __init__(self, x_dim: int = 1, y_dim: int = 1, r_dim: int = 128,
                  min_sigma_pred: float = 0.01, cond_dim: int = 0, use_kernels: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, cond_mode: str = "film"):
         super().__init__()
         self.x_dim, self.y_dim, self.r_dim = x_dim, y_dim, r_dim
         self.min_sigma_pred = min_sigma_pred
         self.cond_dim = cond_dim
+        self.cond_mode = cond_mode
         self.use_kernels = use_kernels
         self.dtype = dtype
         if cond_dim > 0:
@@ -78,6 +80,8 @@ class NeuralProcessFamily(nn.Module):
                 raise ValueError("cond_dim > 0 requires a `condition` input")
             cond_emb = self.cond_encoder(condition)
         R = self.encode_globally(x_c, y_cntxt, mask_cntxt, cond_emb=cond_emb)
+        if cond_emb is not None and self.cond_mode == "add":  # broadcast over R's positions
+            R = R + cond_emb.reshape(cond_emb.shape[0], *([1] * (R.dim() - 2)), cond_emb.shape[-1])
         R_trgt = self.trgt_dependent_representation(x_c, R, x_t, mask_cntxt)
         return NPFOutput(self.decode(x_t, R_trgt))
 

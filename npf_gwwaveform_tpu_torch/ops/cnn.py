@@ -1,9 +1,11 @@
-"""Depthwise-separable residual CNN over the induced grid; the counterpart of
-`npf_gwwaveform_tpu/ops/cnn.py` (`ResConvBlock`, `CNN`, flax `BatchNorm`).
+"""Depthwise-separable residual CNNs over the induced grid; the counterpart of
+`npf_gwwaveform_tpu/ops/cnn.py` (`ResConvBlock`, `CNN` with per-block
+dilations, `UnetCNN`, flax `BatchNorm`).
 
-The JAX package is channel-last; `CNN` keeps that at its interface and runs
-its blocks channel-first, the layout of `torch.nn.functional.conv1d`. The
-convolutions are stock PyTorch, as the JAX package leaves them to XLA.
+The JAX package is channel-last; `CNN` and `UnetCNN` keep that at their
+interface and run their blocks channel-first, the layout of
+`torch.nn.functional.conv1d`. The convolutions, the max-pool and the linear
+upsampling are stock PyTorch, as the JAX package leaves them to XLA.
 
 `dtype` is the JAX modules' compute dtype: with bfloat16 every convolution
 runs as flax's `nn.Conv(dtype=bfloat16)` (`conv`), while `BatchNorm`, which
@@ -13,7 +15,7 @@ flax promotes a bf16 input and float32 parameters to.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -83,18 +85,21 @@ def _norm(norm: Optional[str], n_chan: int, eps: float) -> nn.Module:
     raise ValueError(f"Unknown norm={norm}")
 
 
-def _depthwise(n_chan: int, kernel_size: int) -> nn.Conv1d:
-    return nn.Conv1d(n_chan, n_chan, kernel_size, padding=kernel_size // 2, groups=n_chan)
+def _depthwise(n_chan: int, kernel_size: int, dilation: int = 1) -> nn.Conv1d:
+    """SAME padding for an odd kernel: dilation * (k // 2) on each side."""
+    return nn.Conv1d(n_chan, n_chan, kernel_size, padding=dilation * (kernel_size // 2),
+                     dilation=dilation, groups=n_chan)
 
 
 class DepthSepConv(nn.Module):
-    """Depthwise conv (SAME padding) then pointwise 1x1, channel-first."""
+    """Depthwise conv (SAME padding, dilated by `dilation`) then pointwise
+    1x1, channel-first."""
 
     def __init__(self, in_chan: int, out_chan: int, kernel_size: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dilation: int = 1):
         super().__init__()
         self.dtype = dtype
-        self.depthwise = _depthwise(in_chan, kernel_size)
+        self.depthwise = _depthwise(in_chan, kernel_size, dilation)
         self.pointwise = nn.Conv1d(in_chan, out_chan, 1)
         self.init_params()
 
@@ -108,11 +113,13 @@ class DepthSepConv(nn.Module):
 
 class ResConvBlock(nn.Module):
     """Pre-activation residual depthwise-separable block, channel-first
-    [B,C,L]; the residual joins before the last pointwise conv."""
+    [B,C,L]; the residual joins before the last pointwise conv, so the block
+    can change the channel count. Its depthwise convs are dilated by
+    `dilation`."""
 
     def __init__(self, in_chan: int, out_chan: int, kernel_size: int = 5,
                  norm: Optional[str] = None, n_conv_layers: int = 1, norm_eps: float = 1e-3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dilation: int = 1):
         super().__init__()
         if n_conv_layers not in (1, 2):
             raise ValueError("n_conv_layers must be 1 or 2")
@@ -122,9 +129,9 @@ class ResConvBlock(nn.Module):
         self.dtype = dtype
         if n_conv_layers == 2:
             self.norm1 = _norm(norm, in_chan, norm_eps)
-            self.conv1 = DepthSepConv(in_chan, in_chan, kernel_size, dtype)
+            self.conv1 = DepthSepConv(in_chan, in_chan, kernel_size, dtype, dilation)
         self.norm2 = _norm(norm, in_chan, norm_eps)
-        self.conv2_depthwise = _depthwise(in_chan, kernel_size)
+        self.conv2_depthwise = _depthwise(in_chan, kernel_size, dilation)
         self.conv2_pointwise = nn.Conv1d(in_chan, out_chan, 1)
         self.init_params()
 
@@ -142,19 +149,72 @@ class ResConvBlock(nn.Module):
 
 class CNN(nn.Module):
     """Stack of `ResConvBlock`s named block_0..block_{n-1}; takes and returns
-    channel-last [B, L, C]."""
+    channel-last [B, L, C]. `dilations` gives each block's dilation (None:
+    all 1), one per block."""
 
     def __init__(self, n_channels: int, n_blocks: int = 3, kernel_size: int = 5,
                  norm: Optional[str] = None, n_conv_layers: int = 1, norm_eps: float = 1e-3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dilations: Optional[Sequence[int]] = None):
         super().__init__()
+        if dilations is not None and len(dilations) != n_blocks:
+            raise ValueError(f"dilations {tuple(dilations)} must have n_blocks={n_blocks} entries")
         self.n_blocks = n_blocks
         for i in range(n_blocks):
             self.add_module(f"block_{i}", ResConvBlock(
-                n_channels, n_channels, kernel_size, norm, n_conv_layers, norm_eps, dtype))
+                n_channels, n_channels, kernel_size, norm, n_conv_layers, norm_eps, dtype,
+                1 if dilations is None else int(dilations[i])))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.transpose(1, 2)
         for i in range(self.n_blocks):
             x = getattr(self, f"block_{i}")(x)
+        return x.transpose(1, 2)
+
+
+class UnetCNN(nn.Module):
+    """U-Net of `ResConvBlock`s named block_0..block_{n-1} over a 1-D grid
+    (`npf_gwwaveform_tpu/ops/cnn.py::UnetCNN`); takes and returns
+    channel-last [B, L, C].
+
+    The n // 2 down blocks each double the channels, capped at
+    `max_nchannels`, and are followed by a max-pool of window and stride
+    `pooling_size` (VALID); a bottleneck block; then each up block takes
+    the input upsampled linearly to `pooling_size` times its length,
+    concatenated with the output of its down block, the last up block
+    pairing with the first down block. The upsampling is
+    `jax.image.resize(method="linear")`'s, which at an exact integer factor
+    is `F.interpolate(mode="linear", align_corners=False)`: interior samples
+    on the triangle kernel, each edge sample equal to the edge input.
+    """
+
+    def __init__(self, n_channels: int, n_blocks: int = 5, kernel_size: int = 5,
+                 norm: Optional[str] = None, n_conv_layers: int = 1, norm_eps: float = 1e-3,
+                 max_nchannels: int = 256, pooling_size: int = 2,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if n_blocks % 2 != 1:
+            raise ValueError(f"n_blocks={n_blocks} must be odd")
+        self.n_blocks, self.n_down, self.pooling_size = n_blocks, n_blocks // 2, pooling_size
+        chans = [2 ** i * n_channels for i in range(self.n_down + 1)]
+        chans = chans + chans[::-1]
+        chans = chans[:1] + [min(c, max_nchannels) for c in chans[1:-1]] + chans[-1:]
+        for i, (c_in, c_out) in enumerate(zip(chans, chans[1:])):
+            if i > self.n_down:  # an up block also takes its down block's output
+                c_in += chans[2 * self.n_down - i + 1]
+            self.add_module(f"block_{i}", ResConvBlock(
+                c_in, c_out, kernel_size, norm, n_conv_layers, norm_eps, dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.transpose(1, 2)
+        block = lambda i, h: getattr(self, f"block_{i}")(h)  # noqa: E731
+        residuals = []
+        for i in range(self.n_down):
+            x = block(i, x)
+            residuals.append(x)
+            x = F.max_pool1d(x, self.pooling_size, self.pooling_size)
+        x = block(self.n_down, x)
+        for i in range(self.n_down + 1, self.n_blocks):
+            x = F.interpolate(x, size=x.shape[-1] * self.pooling_size, mode="linear",
+                              align_corners=False)
+            x = block(i, torch.cat([x, residuals[self.n_down - i]], dim=1))
         return x.transpose(1, 2)

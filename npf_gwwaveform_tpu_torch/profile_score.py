@@ -50,19 +50,19 @@ def main(argv=None) -> dict:
         summary = json.load(f)
     model = load_model(args.run_dir, "cuda", dtype=dtype)
     gen, space = run_generator(summary), GWParameterSpace()
-    splitter = eval_splitter(summary["n_context"])
+    splitter, n_points = eval_splitter(summary["n_context"]), summary.get("n_points", 256)
     theta = torch.from_numpy(read_run_thetas(args.run_dir)[:256]).cuda()
 
     g = torch.Generator(device="cuda")
 
     def one_batch():
-        score_batch(model, splitter, g.manual_seed(0), theta, gen, space)
+        score_batch(model, splitter, g.manual_seed(0), theta, gen, space, n_points)
         torch.cuda.synchronize()
 
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         eager = measure_step(one_batch, args.reps)
         # after eager batches, as `score_run` makes it
-        graph = batch_graph(model, splitter, g.manual_seed(0), theta, gen, space)
+        graph = batch_graph(model, splitter, g.manual_seed(0), theta, gen, space, n_points)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         graph.capture()

@@ -1,10 +1,13 @@
 """Score a frozen GW ConvCNP run: the port's counterpart of the eval block of
 `experiments/reproduce_gw.py` (`--eval-only`).
 
-Each eval batch (256 waveforms) generates time-domain waveforms at 1024 Hz
-over the run's `duration` (1 s unless the summary says otherwise), keeps
-`n_points` evenly strided samples of them (256 unless the summary says
-otherwise: every 4th of 1024) on x in [-1, 1], splits them into
+It scores any time-domain ConvCNP run `reproduce_gw.py` wrote (the flat CNN,
+dilated or not, or the UnetCNN; FiLM or additive conditioning; 1 s or the
+2 s long waveforms). Each eval batch (256 waveforms) generates time-domain
+waveforms at 1024 Hz over the run's `duration` (1 s unless the summary says
+otherwise), keeps `n_points` evenly strided samples of them (256 unless the
+summary says otherwise: every 4th of 1024; the long runs keep all 2048) on
+x in [-1, 1], splits them into
 a context of U{0..n_context} points per waveform and all points as targets,
 conditions on the normalised parameters, and records per waveform the NPML
 log-likelihood and the white-noise mismatch of the predictive mean. On
@@ -15,7 +18,9 @@ that holds all of it, the waveforms and the split included (`batch_graph`).
     python -m npf_gwwaveform_tpu_torch.score --run-dir DIR [--n-test N]
         [--thetas-from-run | --thetas-from RUN_DIR] [--device cuda] [--bf16]
 
-prints one JSON line and writes nothing. `--bf16` scores in bfloat16 compute
+prints one JSON line and writes nothing. Its draws (drawn thetas, context
+splits) come from `--seed`, `EVAL_SEED` by default; from `--n-test` 256 on
+it scores whole batches of 256, as `reproduce_gw.py` does. `--bf16` scores in bfloat16 compute
 (the run's float32 parameters, every module in bf16 as `reproduce_gw.py
 --bf16` builds it; log-likelihoods and mismatches stay float32). `--thetas-from-run` scores the
 parameters recorded in the run's `mismatch_theta.csv`, in order;
@@ -53,8 +58,15 @@ EVAL_BATCH = 256
 # `score_run` was no faster than the eager one
 GRAPH_MIN_REPLAYS = 20
 SAMPLE_RATE = 1024.0  # experiments/reproduce_gw.py builds its generator at 1024 Hz
+# the seed of every scoring's draws (drawn thetas and context splits), whatever
+# seed a run was trained from, so that two runs of a configuration are scored
+# on the same waveforms, as `reproduce_gw.py` scores every run from
+# fold_in(PRNGKey(123), i); Philox cannot reproduce that threefry stream, so
+# the value is the port's own
+EVAL_SEED = 0
 
-__all__ = ["load_model", "read_run_thetas", "run_generator", "make_eval_batch", "eval_splitter",
+__all__ = ["EVAL_SEED", "n_scored", "load_model", "read_run_thetas", "run_generator",
+           "make_eval_batch", "eval_splitter",
            "score_batch", "batch_graph", "score_run", "summary_metrics", "write_scores"]
 
 
@@ -129,6 +141,15 @@ def eval_splitter(n_context: int) -> CntxtTrgtSplitter:
     )
 
 
+def n_scored(n_test: int) -> int:
+    """How many waveforms `score_run` scores for `n_test`: whole batches of
+    256 from 256 on, as `reproduce_gw.py` scores `n_test // 256` of them;
+    below 256 exactly `n_test` (`reproduce_gw.py` scores one batch of 256
+    there: the port's remaining deviation, which keeps scoring a few
+    waveforms cheap)."""
+    return n_test if n_test < EVAL_BATCH else n_test // EVAL_BATCH * EVAL_BATCH
+
+
 def summary_metrics(ll: np.ndarray, mm: np.ndarray, mm_zdraw: np.ndarray) -> dict:
     """The metric fields `reproduce_gw.py` records in a run's summary, from
     per-waveform log-likelihoods and mismatches."""
@@ -148,11 +169,13 @@ def summary_metrics(ll: np.ndarray, mm: np.ndarray, mm_zdraw: np.ndarray) -> dic
 
 
 def score_run(run_dir: str, n_test: int = 2048, thetas_from: Optional[str] = None,
-              device="cuda", seed: int = 0, use_kernels: bool = True,
+              device="cuda", seed: int = EVAL_SEED, use_kernels: bool = True,
               dtype: Optional[torch.dtype] = None) -> dict:
-    """Score `n_test` waveforms of the run, on thetas drawn from `seed`, or
-    on those recorded in the `mismatch_theta.csv` of the run directory
-    `thetas_from` (`run_dir` itself included), in compute `dtype`. On CUDA,
+    """Score `n_scored(n_test)` waveforms of the run (whole batches of 256
+    from 256 on), on thetas drawn from `seed`, or on the first of those
+    recorded in the `mismatch_theta.csv` of the run directory `thetas_from`
+    (`run_dir` itself included), in compute `dtype`; the context splits are
+    drawn from `seed` too. On CUDA,
     when at least `GRAPH_MIN_REPLAYS` batches of 256 follow the first, the
     first runs eagerly and warms up `batch_graph`, and the rest replay it;
     every other batch (the CPU's, a last one short of 256, too few to pay
@@ -168,10 +191,11 @@ def score_run(run_dir: str, n_test: int = 2048, thetas_from: Optional[str] = Non
     n_points = summary.get("n_points", 256)
     splitter = eval_splitter(summary["n_context"])
     generator = torch.Generator(device=device).manual_seed(seed)
+    n = n_scored(n_test)
     if thetas_from is not None:
-        thetas = torch.from_numpy(read_run_thetas(thetas_from)[:n_test]).to(device)
+        thetas = torch.from_numpy(read_run_thetas(thetas_from)[:n]).to(device)
     else:
-        thetas = space.sample(n_test, generator)
+        thetas = space.sample(n, generator)
     graphed = device.type == "cuda" and thetas.shape[0] // EVAL_BATCH - 1 >= GRAPH_MIN_REPLAYS
     graph = None
 
@@ -236,7 +260,7 @@ def main(argv=None) -> dict:
     thetas.add_argument("--thetas-from-run", action="store_true")
     thetas.add_argument("--thetas-from", default=None, metavar="RUN_DIR")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=EVAL_SEED)
     ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = ap.parse_args(argv)
     set_numerics()

@@ -6,7 +6,7 @@ flat CNN).
     python -m npf_gwwaveform_tpu_torch.train_gw [--steps N] [--batch 32]
         [--lr 1e-3] [--decay-lr 10] [--seed 0] [--device cuda]
         [--out runs_torch/] [--run 0] [--n-test 2048] [--thetas-from RUN_DIR]
-        [--bf16]
+        [--resume-from RUN_DIR] [--bf16]
 
 Each step draws `--batch` waveforms on the device (the scorer's generator
 and stride: 1024 Hz over 1 s, every 4th sample), splits them with one context
@@ -16,19 +16,32 @@ Adam step on the CNPF loss, the learning rate decaying x`--decay-lr` over
 once in a CUDA graph and replayed, in chunks of 50 steps as
 `reproduce_gw.py` scans them; on the CPU it runs eagerly. The run directory
 `<out>/GW_time_cond_film_ctx192_d128/ConvCNP/run_<run>` gets the files
-`reproduce_gw.py` writes: `history.json` (step, seconds since the first
-step, mean train loss of the last 50 steps), `params.msgpack` and
-`extra_vars.msgpack` in flax's layout, `model_summary.txt` and
-`summary.json`; then `score.score_run` scores `--n-test` waveforms of it
-(drawn from `--seed`, or those recorded in `--thetas-from`'s
-`mismatch_theta.csv`, so that a run's recorded scores are on the waveforms a
-run it is compared with was scored on) and `score.write_scores` adds `eval.csv`,
+`reproduce_gw.py` writes. Every tenth of the run, at the chunks where
+`reproduce_gw.py` writes them (`checkpoint_chunks`), `params.msgpack` and
+`extra_vars.msgpack` in flax's layout, so that a lost run can go on from its
+last tenth; after the last step those two again, `history.json` (step,
+seconds since the first step, mean train loss of the last 50 steps),
+`model_summary.txt` and `summary.json`; then `score.score_run` scores
+`--n-test` waveforms of it (drawn from `score.EVAL_SEED`, whatever `--seed`
+is, or those recorded in `--thetas-from`'s `mismatch_theta.csv`, so that a
+run's recorded scores are on the waveforms a run it is compared with was
+scored on) and `score.write_scores` adds `eval.csv`,
 `mismatch_theta.csv` and the scores to the summary, which is printed as one
 JSON line. Float32 by default, with TF32 off for matmuls and cuDNN
 convolutions; `--bf16` trains and scores in bfloat16 compute, as
 `reproduce_gw.py --bf16` does (every module in bf16; the parameters, the
 BatchNorm statistics, Adam's state, the loss and the run files stay float32,
 and the summary has the same keys).
+
+`--resume-from RUN_DIR` warm-starts from another run directory's parameters
+and BatchNorm statistics (a JAX run of the same configuration or a port
+run), as `reproduce_gw.py --resume-from` does: Adam's state and the
+learning-rate schedule restart, so the run re-peaks at `--lr` and decays over
+`--steps`; the summary records `resumed_from` as given, and a RUN_DIR that is
+the run's own output directory is refused.
+
+Unlike `reproduce_gw.py`, which trains `steps // 50` whole chunks and drops
+the remainder, the port trains every step asked for.
 """
 
 from __future__ import annotations
@@ -45,8 +58,8 @@ from .configs import STEPS_PER_EPOCH, gw_model_from_summary, gw_train_summary, r
 from .data.datasplit import CntxtTrgtSplitter, GetRandomIndcs, get_all_indcs
 from .data.gw import GWParameterSpace
 from .losses import CNPFLoss
-from .score import make_eval_batch, run_generator, score_run, write_scores
-from .training.checkpoint import save_run_params
+from .score import EVAL_SEED, make_eval_batch, run_generator, score_run, write_scores
+from .training.checkpoint import load_run_params, params_from_flax, save_run_params
 from .training.state import count_parameters
 from .training.optim import make_optimizer
 from .training.trainer import Trainer
@@ -55,7 +68,8 @@ from .utils.init import init_module
 
 HISTORY_EVERY = 50  # steps per history entry, as reproduce_gw.py's chunks
 
-__all__ = ["build_trainer", "train", "write_run", "run", "main"]
+__all__ = ["build_trainer", "checkpoint_chunks", "load_params_into", "train", "write_run",
+           "output_dir", "refuse_own_dir", "run", "main"]
 
 
 def build_trainer(summary: dict, steps: int, device, lr: float = 1e-3, decay_lr: float = 10.0,
@@ -80,16 +94,35 @@ def build_trainer(summary: dict, steps: int, device, lr: float = 1e-3, decay_lr:
                    generator=torch.Generator(device=device).manual_seed(seed))
 
 
+def checkpoint_chunks(steps: int) -> list:
+    """The chunks (numbered from 0, each of min(50, steps) steps) after which
+    `reproduce_gw.py` writes its mid-run checkpoint: chunk i from 1 on with
+    i % max(1, n_chunks // 10) == 0, of its n_chunks = max(1, steps // chunk)
+    whole chunks."""
+    n_chunks = max(1, steps // min(HISTORY_EVERY, steps))
+    every = max(1, n_chunks // 10)
+    return [i for i in range(1, n_chunks) if i % every == 0]
+
+
+def load_params_into(model: torch.nn.Module, run_dir: str) -> None:
+    """Copy a run directory's parameters and BatchNorm statistics into the
+    model's own tensors (`load_state_dict` copies in place, strict), so that
+    a CUDA graph captured on them later, or already, reads them."""
+    model.load_state_dict(params_from_flax(*load_run_params(run_dir)), strict=True)
+
+
 def train(trainer: Trainer, summary: dict, steps: int, batch: int,
-          time_steps: bool = False) -> tuple:
+          time_steps: bool = False, checkpoint_dir: Optional[str] = None) -> tuple:
     """`steps` train steps on fresh waveforms -> (history, per-step losses
     [steps] on the device, seconds, per-step seconds). Each step draws its
     waveforms on the device (`Trainer.train_steps_generated`: on CUDA the
     whole step, sampling included, is one CUDA-graph replay), in chunks of
     min(50, steps) steps as `reproduce_gw.py` scans them; the host reads the
-    losses once a chunk, for the history. With `time_steps` each step ends
-    in a device synchronise and its host-clock time is recorded; otherwise
-    the host runs ahead within a chunk and the list is empty."""
+    losses once a chunk, for the history, and after each of
+    `checkpoint_chunks(steps)` writes the model's parameters and statistics
+    into `checkpoint_dir` (when given). With `time_steps` each step ends in
+    a device synchronise and its host-clock time is recorded; otherwise the
+    host runs ahead within a chunk and the list is empty."""
     gen, space = run_generator(summary), GWParameterSpace()
     n_points = summary.get("n_points", 256)
 
@@ -101,6 +134,7 @@ def train(trainer: Trainer, summary: dict, steps: int, batch: int,
     losses = torch.empty((steps,), device=device)
     history, step_seconds = [], []
     chunk = min(HISTORY_EVERY, steps)
+    checkpoints = set(checkpoint_chunks(steps)) if checkpoint_dir is not None else set()
     t0 = time.perf_counter()
     for start in range(0, steps, chunk):
         end = min(start + chunk, steps)
@@ -114,6 +148,10 @@ def train(trainer: Trainer, summary: dict, steps: int, batch: int,
             losses[start:end] = trainer.train_steps_generated(sample, end - start)
         mean = losses[end - min(HISTORY_EVERY, end):end].mean().item()
         history.append({"step": end, "dur": time.perf_counter() - t0, "train_loss": mean})
+        if start // chunk in checkpoints:  # between replays: the chunk's losses are read
+            save_run_params(checkpoint_dir, trainer.model)
+            print(f"checkpoint at step {end} in {checkpoint_dir}: loss {mean:.2f}, "
+                  f"{history[-1]['dur']:.0f} s", flush=True)
     sync()
     return history, losses, time.perf_counter() - t0, step_seconds
 
@@ -131,25 +169,45 @@ def write_run(run_dir: str, model: torch.nn.Module, summary: dict, history: list
         json.dump(summary, f, indent=2)
 
 
+def output_dir(out: str, run_index: int) -> str:
+    """The run directory `run` writes under `out`."""
+    summary = gw_train_summary()
+    return os.path.join(out, run_tag(summary), summary["model"], f"run_{run_index}")
+
+
+def refuse_own_dir(resume_from: Optional[str], run_dir: str) -> None:
+    """Raise ValueError if `resume_from` resolves to `run_dir`."""
+    if resume_from is not None and os.path.abspath(resume_from) == os.path.abspath(run_dir):
+        raise ValueError(f"--resume-from resolves to this run's own output dir ({run_dir}); "
+                         "pass a different --run for the continuation")
+
+
 def run(steps: int, batch: int = 32, lr: float = 1e-3, decay_lr: float = 10.0, seed: int = 0,
         device="cuda", out: str = "runs_torch/", run_index: int = 0,
         n_test: int = 2048, thetas_from: Optional[str] = None,
-        dtype: Optional[torch.dtype] = None) -> tuple:
-    """Train the flagship configuration in compute `dtype`, write its run
-    directory and score it in that dtype (on `thetas_from`'s recorded thetas
-    when given). -> (run_dir, summary with the scores)."""
+        dtype: Optional[torch.dtype] = None, resume_from: Optional[str] = None) -> tuple:
+    """Train the flagship configuration in compute `dtype` (from
+    `resume_from`'s parameters when given, else from the init drawn from
+    `seed`), with the decile checkpoints, write its run directory and score
+    it in that dtype on `score.EVAL_SEED`'s draws (on `thetas_from`'s
+    recorded thetas when given). -> (run_dir, summary with the scores)."""
     summary = gw_train_summary()
+    run_dir = output_dir(out, run_index)
+    refuse_own_dir(resume_from, run_dir)
     trainer = build_trainer(summary, steps, device, lr, decay_lr, seed, dtype=dtype)
-    history, _, seconds, _ = train(trainer, summary, steps, batch)
+    if resume_from is not None:
+        load_params_into(trainer.model, resume_from)
+    history, _, seconds, _ = train(trainer, summary, steps, batch, checkpoint_dir=run_dir)
     summary.update(steps=steps, batch=batch, train_wf_per_sec=steps * batch / seconds)
+    if resume_from is not None:
+        summary["resumed_from"] = resume_from
     if lr != 1e-3:
         summary["lr"] = lr
     if decay_lr != 10.0:
         summary["decay_lr"] = decay_lr
 
-    run_dir = os.path.join(out, run_tag(summary), summary["model"], f"run_{run_index}")
     write_run(run_dir, trainer.model, summary, history)
-    scores = score_run(run_dir, n_test, device=device, seed=seed, thetas_from=thetas_from,
+    scores = score_run(run_dir, n_test, device=device, seed=EVAL_SEED, thetas_from=thetas_from,
                        dtype=dtype)
     return run_dir, write_scores(run_dir, scores)
 
@@ -166,12 +224,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--run", type=int, default=0)
     ap.add_argument("--n-test", type=int, default=2048)
     ap.add_argument("--thetas-from", default=None, metavar="RUN_DIR")
+    ap.add_argument("--resume-from", default=None, metavar="RUN_DIR",
+                    help="warm-start from that run's parameters and BatchNorm statistics")
     ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = ap.parse_args(argv)
+    try:
+        refuse_own_dir(args.resume_from, output_dir(args.out, args.run))
+    except ValueError as e:
+        ap.error(str(e))
     set_numerics()
-    run_dir, summary = run(args.steps, args.batch, args.lr, args.decay_lr, args.seed, args.device,
-                           args.out, args.run, args.n_test, args.thetas_from,
-                           torch.bfloat16 if args.bf16 else None)
+    run_dir, summary = run(args.steps, args.batch, args.lr, args.decay_lr, args.seed,
+                           args.device, args.out, args.run, args.n_test, args.thetas_from,
+                           torch.bfloat16 if args.bf16 else None, args.resume_from)
     print(json.dumps({"run_dir": run_dir, **summary}))
     return summary
 

@@ -1,0 +1,172 @@
+"""Where a rescoring's offset from a run's recorded scores comes from. Not a
+test: run it by hand on the CPU.
+
+    JAX_PLATFORMS=cpu python tests/jax_score_offsets.py --run RUN_DIR [--n 256]
+        [--chunk 16] [--seeds 0,1,2,3] [--out offsets.json]
+
+`reproduce_gw.py` scores every run on one set of eval draws: batch i of 256
+takes its thetas and context masks from `fold_in(PRNGKey(123), i)`, whatever
+the run. This script draws that set again for the first `--n` recorded
+waveforms (and checks the thetas it draws against the recorded ones), makes
+their waveforms with the JAX generator, and scores the run in float32 on the
+CPU with the JAX package (`use_pallas_setconv=False`, the same function as
+the Pallas SetConv) and with the port, on the same waveforms, under two
+kinds of draws:
+
+- `jax`: the record's own context masks;
+- `port_<seed>`: the port's eval splitter from a CPU generator seeded with
+  each of `--seeds`, 256 waveforms a draw as `score_run` draws them (the
+  port's draws on the card come from CUDA's Philox stream instead: the same
+  law, other masks).
+
+Prints one JSON line: the record's mean LL and median/p90/p99 mismatch over
+the same waveforms; each (model, draws) pair's; and per waveform, the JAX
+package on the record's draws against the record (what the recording
+device's arithmetic adds) and the port against the JAX package on the same
+draws (what the port adds).
+"""
+
+import argparse
+import json
+import os
+import sys
+
+import flax.serialization
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+from npf_gwwaveform_tpu.configs import gw_model_from_summary  # noqa: E402
+from npf_gwwaveform_tpu.data import (  # noqa: E402
+    CntxtTrgtSplitter, GetRandomIndcs, GWParameterSpace, GWWaveformGenerator, get_all_indcs,
+)
+from npf_gwwaveform_tpu.data.gw import mismatch as jax_mismatch  # noqa: E402
+from npf_gwwaveform_tpu.losses import CNPFLoss as JaxCNPFLoss  # noqa: E402
+from npf_gwwaveform_tpu_torch.data.gw import mismatch  # noqa: E402
+from npf_gwwaveform_tpu_torch.losses import CNPFLoss  # noqa: E402
+from npf_gwwaveform_tpu_torch.run_report import recorded_scores  # noqa: E402
+from npf_gwwaveform_tpu_torch.score import eval_splitter, load_model, read_run_thetas  # noqa: E402
+
+EVAL_BATCH = 256
+
+
+def _restore(path):
+    with open(path, "rb") as f:
+        data = f.read()
+    return flax.serialization.from_bytes(flax.serialization.msgpack_restore(data), data)
+
+
+def _stats(ll, mm):
+    return {"mean_ll": float(ll.mean()), "median_mismatch": float(np.median(mm)),
+            "p90_mismatch": float(np.percentile(mm, 90)),
+            "p99_mismatch": float(np.percentile(mm, 99))}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--run", required=True, metavar="RUN_DIR")
+    ap.add_argument("--n", type=int, default=256, help="a multiple of 256")
+    ap.add_argument("--chunk", type=int, default=16, help="waveforms a forward pass")
+    ap.add_argument("--seeds", default="0,1,2,3")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    torch.set_num_threads(4)
+    with open(os.path.join(args.run, "summary.json")) as f:
+        summary = json.load(f)
+    n_points, n_context = summary.get("n_points", 256), summary["n_context"]
+    gen = GWWaveformGenerator(duration=summary.get("duration", 1.0), sample_rate=1024.0)
+    space = GWParameterSpace()
+    stride = gen.n_time // n_points
+    splitter = CntxtTrgtSplitter(
+        contexts_getter=GetRandomIndcs(a=0.0, b=n_context, is_indep_n=True),
+        targets_getter=get_all_indcs)
+
+    # the record's eval draws, batch by batch, as reproduce_gw.py's eval_batch
+    ys, conds, masks = [], [], {"jax": []}
+    for i in range(args.n // EVAL_BATCH):
+        kd, ks, _ = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(123), i), 3)
+        theta = space.sample(kd, EVAL_BATCH)
+        _, h = gen.time_domain(theta)
+        y = h[..., -n_points * stride::stride][..., :n_points, None]
+        x = jnp.broadcast_to(jnp.linspace(-1.0, 1.0, n_points)[None, :, None], y.shape)
+        batch = splitter(ks, x, y, condition=space.normalize(theta))
+        ys.append(np.asarray(y))
+        conds.append(np.asarray(batch["condition"]))
+        masks["jax"].append(np.asarray(batch["mask_cntxt"]))
+        assert np.all(np.asarray(batch["mask_trgt"]))
+        np.testing.assert_allclose(np.asarray(theta),
+                                   read_run_thetas(args.run)[i * EVAL_BATCH:(i + 1) * EVAL_BATCH],
+                                   rtol=1e-5, atol=1e-5)
+    y, cond = np.concatenate(ys), np.concatenate(conds)
+    masks["jax"] = np.concatenate(masks["jax"])
+    x = np.broadcast_to(np.asarray(jnp.linspace(-1.0, 1.0, n_points))[None, :, None],
+                        y.shape).copy()
+    # the port's draws, 256 waveforms a draw from one generator, as score_run
+    split = eval_splitter(n_context)
+    for seed in (int(s) for s in args.seeds.split(",")):
+        g = torch.Generator().manual_seed(seed)
+        masks[f"port_{seed}"] = np.concatenate([
+            split(g, torch.from_numpy(x[i:i + EVAL_BATCH]), torch.from_numpy(y[i:i + EVAL_BATCH]))
+            ["mask_cntxt"].numpy() for i in range(0, args.n, EVAL_BATCH)])
+
+    jm = gw_model_from_summary(summary).clone(use_pallas_setconv=False)
+    variables = {"params": _restore(os.path.join(args.run, "params.msgpack")),
+                 **_restore(os.path.join(args.run, "extra_vars.msgpack"))}
+
+    @jax.jit
+    def jax_score(x, y, mask_c, cond):
+        mask_t = jnp.ones(mask_c.shape, bool)
+        out = jm.apply(variables, x, y, x, mask_cntxt=mask_c, mask_trgt=mask_t, condition=cond,
+                       train=False)
+        ll = -JaxCNPFLoss(reduction=None)(out, y, mask_t, train=False)
+        return ll, jax_mismatch(out.p_yCc.loc[0, ..., 0], y[..., 0])
+
+    tm = load_model(args.run, "cpu")
+
+    def port_score(x, y, mask_c, cond):
+        x, y, mask_c, cond = (torch.from_numpy(np.ascontiguousarray(a))
+                              for a in (x, y, mask_c, cond))
+        mask_t = torch.ones_like(mask_c)
+        with torch.no_grad():
+            out = tm(x, y, x, mask_c, mask_t, cond)
+            ll = -CNPFLoss(reduction=None)(out, y, mask_t, train=False)
+            return ll, mismatch(out.p_yCc.loc[0, ..., 0], y[..., 0])
+
+    scores = {}
+    for model, score in (("jax", jax_score), ("port", port_score)):
+        for draws, mask in masks.items():
+            if model == "port" and draws not in ("jax", f"port_{args.seeds.split(',')[0]}"):
+                continue
+            parts = [score(x[i:i + args.chunk], y[i:i + args.chunk], mask[i:i + args.chunk],
+                           cond[i:i + args.chunk]) for i in range(0, args.n, args.chunk)]
+            scores[model, draws] = [np.concatenate([np.asarray(p[k], np.float64) for p in parts])
+                                    for k in range(2)]
+            print(f"{model} on {draws}'s draws: {_stats(*scores[model, draws])}", flush=True)
+
+    rec_ll, rec_mm = (a[:args.n].astype(np.float64) for a in recorded_scores(args.run))
+    d_rec = scores["jax", "jax"][0] - rec_ll
+    out = {"run": args.run, "n": args.n, "record": _stats(rec_ll, rec_mm),
+           "scores": {f"{m}@{d}": _stats(*v) for (m, d), v in scores.items()},
+           "jax_vs_record": {"d_ll_mean": float(d_rec.mean()),
+                             "d_ll_max_abs": float(np.abs(d_rec).max()),
+                             "d_mismatch_max_abs": float(
+                                 np.abs(scores["jax", "jax"][1] - rec_mm).max())},
+           "port_vs_jax": {}}
+    for draws in {d for m, d in scores if m == "port"}:
+        out["port_vs_jax"][draws] = {
+            "d_ll_max_abs": float(np.abs(scores["port", draws][0] - scores["jax", draws][0]).max()),
+            "d_mismatch_max_abs": float(
+                np.abs(scores["port", draws][1] - scores["jax", draws][1]).max())}
+    n_ctx = {d: m.sum(axis=1) for d, m in masks.items()}
+    out["mean_context"] = {d: float(c.mean()) for d, c in n_ctx.items()}
+    print(json.dumps(out))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -213,7 +213,8 @@ def test_predict_is_the_eval_forward():
 
 
 def test_score_run_batches_equal_a_loop_of_score_batch(tmp_path):
-    """n_test = 260 (a batch of 256, then one of 4) on a narrow-grid run
+    """n_test = 516 (two batches of 256; the 4 left over are not scored,
+    as `reproduce_gw.py` scores whole batches) on a narrow-grid run
     (density 8, kernel 3) written by the port: per waveform, the scores of
     `score_batch` on the same generator in the same order."""
     summary = {**gw_train_summary(density=8), "cnn_kernel_size": 3}
@@ -221,12 +222,12 @@ def test_score_run_batches_equal_a_loop_of_score_batch(tmp_path):
     init_module(model, torch.Generator().manual_seed(5))
     save_run_params(str(tmp_path), model)
     (tmp_path / "summary.json").write_text(json.dumps(summary))
-    n_test, seed = EVAL_BATCH + 4, 2
+    n_test, n, seed = 2 * EVAL_BATCH + 4, 2 * EVAL_BATCH, 2
     out = score_run(str(tmp_path), n_test, device="cpu", seed=seed)
     model = load_model(str(tmp_path), "cpu")
     gen, space = run_generator(summary), GWParameterSpace()
     generator = torch.Generator().manual_seed(seed)
-    thetas = space.sample(n_test, generator)
+    thetas = space.sample(n, generator)
     parts = []
     with torch.inference_mode():
         for i in (0, EVAL_BATCH):
@@ -235,7 +236,7 @@ def test_score_run_batches_equal_a_loop_of_score_batch(tmp_path):
     for key, ref in zip(("ll", "mismatch", "mismatch_zdraw"), zip(*parts)):
         np.testing.assert_array_equal(out[key], torch.cat(ref).numpy(), err_msg=key)
     np.testing.assert_array_equal(out["theta"], thetas.numpy())
-    assert out["n"] == n_test
+    assert out["n"] == n
 
 
 def test_capture_refuses_cpu_model_and_generator():

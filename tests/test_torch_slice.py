@@ -27,7 +27,7 @@ from npf_gwwaveform_tpu.data.gw import GWWaveformGenerator as JaxGenerator
 from npf_gwwaveform_tpu.data.gw import mismatch as jax_mismatch
 from npf_gwwaveform_tpu.losses import CNPFLoss as JaxCNPFLoss
 from npf_gwwaveform_tpu.models.convnp import ConvCNP as JaxConvCNP
-from npf_gwwaveform_tpu_torch.configs import gw_model_from_summary
+from npf_gwwaveform_tpu_torch.configs import gw_model_from_summary, gw_train_summary
 from npf_gwwaveform_tpu_torch.data.gw import mismatch
 from npf_gwwaveform_tpu_torch.losses import CNPFLoss
 from npf_gwwaveform_tpu_torch.models.convnp import ConvCNP
@@ -145,10 +145,25 @@ def test_score_run_on_cpu():
 
 
 def test_gw_model_from_summary_refuses_unported_configs():
-    with pytest.raises(NotImplementedError):
-        gw_model_from_summary({"model": "ConvCNP", "cnn_arch": "unet"})
+    """What the port still refuses: ConvLNP, frequency-domain targets, the
+    UnetCNN with dilations (JAX refuses it too), bfloat16 for the families
+    ported after the flagship, and training the UnetCNN."""
     with pytest.raises(NotImplementedError):
         gw_model_from_summary({"model": "ConvLNP"})
+    with pytest.raises(NotImplementedError):
+        gw_model_from_summary({"model": "ConvCNP", "mode": "freq_ap"})
+    with pytest.raises(ValueError):
+        gw_model_from_summary({"model": "ConvCNP", "cnn_arch": "unet",
+                               "cnn_dilations": [1, 1, 2, 4, 8]})
+    with pytest.raises(NotImplementedError):
+        gw_model_from_summary({"model": "ConvCNP", "cnn_arch": "unet"}, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        gw_train_summary(cnn_arch="unet")
+    with pytest.raises(NotImplementedError):
+        gw_train_summary(cond_mode="add")
+    unet = gw_model_from_summary({"model": "ConvCNP", "cnn_arch": "unet", "conditioned": True,
+                                  "cond_mode": "add"})
+    assert unet.induced_to_induced.block_3.conv1.depthwise.in_channels == 512
     m = gw_model_from_summary({"model": "ConvCNP", "conditioned": True, "density_induced": 128})
     assert m.n_induced == 384
     assert m.induced_to_induced.block_0.conv1.depthwise.kernel_size == (19,)
