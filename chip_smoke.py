@@ -12,13 +12,15 @@ Phases, each announced with the seconds elapsed:
      (U{0..192} of 256 context points real, every grid point real), at the
      long-waveform scoring batch's two shapes (B = 256; 2048 context points
      of which U{0..1024} real onto the 1536-point grid, C = 1, and the grid
-     onto 2048 targets, C = 128, with the long k=37 run's length scales),
-     and at three other cases: random masks at the grid->targets shape, K =
-     5000 keys, and the width C = 512 (K = 2048, Q = 1536); two launches
+     onto 2048 targets, C = 128, with the long k=37 run's length scales)
+     and the long train step's (the same at B = 32), and at three other
+     cases: random masks at the grid->targets shape, K = 5000 keys, and the
+     width C = 512 (K = 2048, Q = 1536); two launches
      must give the same bits;
   4. K2 (fused MLP chain forward) against its plain version at the scoring
      and training decoder shapes, at the long-waveform scoring batch's
-     (M = 256 * 2048 = 524,288 rows, the long k=37 run's decoder), and at
+     (M = 256 * 2048 = 524,288 rows, the long k=37 run's decoder) and
+     train step's (M = 32 * 2048 = 65,536), and at
      the edges of its design: L1=0, a
      ragged residual chain with C != H and no biases, C > H, widths over 128
      (H = 256, and 320 with the residual), O on each side of the small-O
@@ -26,7 +28,8 @@ Phases, each announced with the seconds elapsed:
      activation buffers, and widths served by the wide kernel; two launches
      must give the same bits;
   5. K3 (fused MLP chain backward) against its plain version at the training
-     and scoring shapes, with L1=0 and no biases, at a ragged row count, and
+     and scoring shapes, the long train step's (M = 65,536, the long
+     run's weights), with L1=0 and no biases, at a ragged row count, and
      at widths over 128 (H = 256 and 320, L1 = 2, with and without the
      residual); two launches must give the same bits;
   6. autograd through the kernels against the plain modules at the training
@@ -43,8 +46,8 @@ Phases, each announced with the seconds elapsed:
      and time one batch eagerly and replayed from its graph;
   8. the training path: the train step captured in a CUDA graph against the
      eager step, from two trainers with the same init and generator seed
-     (the counters at the capture; one step: thetas and masks bit-identical,
-     loss and gradients at the step bars; ten steps; ten steps of
+     (the counters at the capture; one step and ten: thetas, masks, losses,
+     gradients, parameters and statistics bit-identical; ten steps of
      `train_steps_scanned` on stacked batches; the kernels of one replay in
      the profiler's trace);
      then train the flagship configuration from the port's init for 500
@@ -55,10 +58,12 @@ Phases, each announced with the seconds elapsed:
      graph), and print the eager and graphed step and batch times;
   9. K2-bf16 (the chain forward in bfloat16 compute) against its plain
      version at the scoring and training decoder shapes with the run's
-     weights and at K2's edge cases (the two widths past its shared memory
-     must be refused before any launch), and K3-bf16 against its plain
-     version at K3's cases, each case with the kernel its plan takes (the
-     decoder shapes must take the tensor cores) and the bf16 cuBLAS layer
+     weights, at the long scoring batch's and train step's (M = 524,288
+     and 65,536, the long run's weights), and at K2's edge cases (the two
+     widths past its shared memory must be refused before any launch), and
+     K3-bf16 against its plain version at K3's cases (the long train step's
+     too), each case with the kernel its plan takes (the decoder shapes
+     must take the tensor cores) and the bf16 cuBLAS layer
      chain's time beside the kernel's at the decoder shapes; each pair must
      meet the bars of `kernel_measure.py`, and two launches must give the
      same bits;
@@ -81,15 +86,33 @@ Phases, each announced with the seconds elapsed:
      capture), held to its bands (`run_report.score_bands`, from the run's
      recorded scores) and printed beside its recorded scores; the launches
      of the long k=37 and long UnetCNN paths counted from a traced replay
-     of each one's own graph; one long-waveform batch of each timed eagerly
-     and replayed;
+     of each one's own graph; then each run again in bfloat16 with the same
+     context draws (through K1 and K2-bf16, at M = 524,288 rows on the long
+     runs), its bf16-float32 mean LL gap held to JAX's own gap on the same
+     thetas (`tests/jax_bf16_family_gaps.json`); one long-waveform batch of
+     each timed eagerly and replayed;
  13. decile checkpoints and resuming: 300 graphed steps of the flagship
      configuration through `train_gw.run` (six chunks of 50, checkpoints
      after chunks 1-5), each checkpoint read back bit for bit as it is
      written; a continuation resumed from the last checkpoint into run
      index 1 (its first forward, before any step, equal to the
      checkpoint's model's bit for bit; `resumed_from` recorded), and a
-     resume into the run's own directory refused.
+     resume into the run's own directory refused;
+ 14. the training paths of the other families, each the configuration a
+     run recorded (`configs.train_config`: architecture, data, learning
+     rate, decay, clip), in float32 and in bf16: additive conditioning
+     (`GW_time_cond_ctx32/run_0`), per-block dilations, k=37, the UnetCNN
+     (`ctx192_d128_unet/run_0`), and the 2 s long waveforms with k=37
+     (`run_1`: lr 3e-4, clip 1.0) and with the UnetCNN (`run_0`: lr 3e-4,
+     decay x100, clip 1.0), K1 at B = 32 on 2048 points and a 1536-point
+     grid, K3 and K3-bf16 at M = 65,536 rows. For each: phase 8's graph
+     checks (the norms before the clip printed; the clip must bind in a
+     long path's checked steps); graphed steps at batch 32 through `train_gw.train` (`FAMILY_RUNS`:
+     500 or 1,000 for the 1 s paths from seeds 0, 1 and 2, 300 for the 2 s
+     ones from seed 0), each draw printing its median loss over the first
+     and the last 50 steps, of which one must fall `FAMILY_FALL` nats; one
+     step of seed 0's trained model on the kernel path against the plain
+     path; the path's launches from a traced replay of seed 0's graph.
 It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -98,6 +121,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -113,7 +137,7 @@ from torch.profiler import ProfilerActivity, profile
 from npf_gwwaveform_tpu_torch import _build
 from npf_gwwaveform_tpu_torch import score as score_mod
 from npf_gwwaveform_tpu_torch import train_gw
-from npf_gwwaveform_tpu_torch.configs import gw_model_from_summary, gw_train_summary
+from npf_gwwaveform_tpu_torch.configs import gw_model_from_summary, gw_train_summary, train_config
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.kernel_measure import (
     K2_BF16_SUM_TOL, K2_CASES, cublas_chain_ms, k1_bound, k1_inputs, k2_bf16_ok, k2_bf16_report,
@@ -136,7 +160,8 @@ from npf_gwwaveform_tpu_torch.training.checkpoint import load_run_params, params
 from npf_gwwaveform_tpu_torch.utils.cuda_graph import WARMUP_CALLS
 from npf_gwwaveform_tpu_torch.utils.helpers import linspace, set_numerics
 
-RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+RESULTS = os.path.join(ROOT, "results")
 RUN_DIR = os.path.join(RESULTS, "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1")
 # the other time-domain ConvCNP runs that hold parameters, each scored on its
 # own recorded thetas and held to its own bands (phase 12)
@@ -175,6 +200,7 @@ GRAD_RTOL = 1e-4
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_RTOL = 1e-3
 TRAIN_STEPS, TRAIN_BATCH = 500, 32
+LONG_TRAIN_STEPS = 300  # the 2 s paths' graphed steps in phase 14
 # the loss must fall: the median per-step loss over steps 251-500 at least 300
 # nats below the median over steps 1-50. Whether it is also below 0 (as in the
 # recorded JAX run, whose 50-step means over steps 251-500 are -53 to -257) is
@@ -232,13 +258,64 @@ GRAPH_LL_ATOL, GRAPH_MISMATCH_ATOL = 1e-4, 1e-6
 # the launches a call of each path makes, (K1, K2, K3, K2-bf16, K3-bf16) as
 # `counts()` orders them
 SCORE_CALL, SCORE16_CALL = (2, 1, 0, 0, 0), (2, 0, 0, 1, 0)
+# phase 12 in bf16: each run's bf16-float32 mean LL gap on its 2048 recorded
+# thetas with the same context draws within the larger of 0.3 nats and 3
+# standard errors of JAX's own gap on the same thetas (its per-waveform
+# differences' sd over the square root of the count it scored: 2048, or 256
+# for a long run), from tests/jax_bf16_family_gaps.py (CPU, op-by-op bf16)
+with open(os.path.join(ROOT, "tests", "jax_bf16_family_gaps.json")) as _f:
+    BF16_GAPS = json.load(_f)
+BF16_GAP_TOL, BF16_GAP_SES = 0.3, 3.0
+# phase 14: the training paths of the other families, each the
+# configuration its run recorded (learning rate, decay and clip included),
+# trained at batch 32: (name, run, steps, seeds). Each draw prints the fall
+# of its median loss from the first 50 steps to the last 50; at least one
+# draw must fall by FAMILY_FALL nats, in float32 and in bf16 (PERF.md,
+# section 6, stated before the first call from CPU rehearsals of
+# seed 0, card draws of seeds 1-8 and the runs' histories). Whether a 1 s
+# configuration falls within its steps depends on the draw: of eight card
+# draws, the UnetCNN's loss rose over 1,000 steps in two, and additive
+# conditioning fell 25-33 nats in two over 500 (its loss falls below 0
+# within the first 50); the CPU rehearsals of seed 0 rose with k=37 and the
+# UnetCNN. So the 1 s paths take seeds 0-2 and the sizes below; the 2 s
+# paths fell 3,800-5,900 nats over 300 steps in each of six draws
+FAMILY_SEEDS = (0, 1, 2)
+FAMILY_RUNS = (
+    ("additive", os.path.join(RESULTS, "GW_time_cond_ctx32", "ConvCNP", "run_0"), 1000,
+     FAMILY_SEEDS),
+    ("dilated", os.path.join(RESULTS, "GW_time_cond_film_ctx64_d128_dil1-1-2-4-8", "ConvCNP",
+                             "run_0"), 500, FAMILY_SEEDS),
+    ("k37", os.path.join(RESULTS, "GW_time_cond_film_ctx64_d128_k37", "ConvCNP", "run_0"), 500,
+     FAMILY_SEEDS),
+    ("unet", os.path.join(RESULTS, "GW_time_cond_film_ctx192_d128_unet", "ConvCNP", "run_0"),
+     1000, FAMILY_SEEDS),
+    ("long k37", os.path.join(RESULTS, "GW_time_cond_film_ctx1024_d512_k37_T2s_np2048_pallas",
+                              "ConvCNP", "run_1"), LONG_TRAIN_STEPS, (0,)),
+    ("long unet", os.path.join(RESULTS, "GW_time_cond_film_ctx1024_d512_unet_T2s_np2048_pallas",
+                               "ConvCNP", "run_0"), LONG_TRAIN_STEPS, (0,)),
+)
+FAMILY_CLIP = 1.0  # the long runs' grad_clip_norm
+FAMILY_FALL = {"additive": 150.0, "dilated": 250.0, "k37": 300.0, "unet": 300.0,
+               "long k37": 2000.0, "long unet": 2000.0}
 TRAIN_CALL, TRAIN16_CALL = (2, 1, 1, 0, 0), (2, 0, 0, 1, 1)
 
 _T0 = time.perf_counter()
 
 
 def phase(name: str) -> None:
-    print(f"== {name} (t={time.perf_counter() - _T0:.1f}s)", flush=True)
+    """Announce a phase, with the card memory PyTorch holds when it starts."""
+    mem = (f"; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
+           f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved"
+           if torch.cuda.is_available() and torch.cuda.is_initialized() else "")
+    print(f"== {name} (t={time.perf_counter() - _T0:.1f}s{mem})", flush=True)
+
+
+def release() -> None:
+    """Free what dropped CUDA graphs and their pools hold: a capture here
+    does not collect garbage or empty the allocator's cache first, as
+    `torch.cuda.graph` does (`utils.cuda_graph.StepGraph.capture`)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def nvidia_smi() -> str:
@@ -525,7 +602,7 @@ def _step_grad_errs(grads, ref):
     return errs, zero
 
 
-def check_train_step(model, summary, gen, dtype=None):
+def check_train_step(model, summary, gen, dtype=None, term_scale=False):
     """One train step on the kernel path against one on the plain path, on
     copies with identical parameters and one identical split batch. Each
     parameter's gradient is held to the step's gradient bar of its max
@@ -534,13 +611,25 @@ def check_train_step(model, summary, gen, dtype=None):
     max magnitude of their block's conv1.pointwise weight gradient. In
     float32 the plain path is the model without kernels (`use_kernels=False`);
     in bf16 (`dtype`) it is the kernel path with every kernel replaced by its
-    plain version, since the Dense decoder rounds elsewhere than the chain."""
+    plain version, since the Dense decoder rounds elsewhere than the chain.
+    With `term_scale` the loss is held relative to the larger of its
+    magnitude and its terms' (the batch mean of each waveform's summed
+    |log-prob|, the plain path's): a float32 sum's rounding scales with its
+    terms, and a trained model's loss can lie near 0 with terms of
+    thousands of nats. In bf16 the loss may then instead lie within
+    `BF16_PATH_MAX` of the bf16-float32 gap of the same step (the float32
+    kernel path's loss on the same parameters and batch), the bar the bf16
+    scoring paths are held to: the two paths differ only where K1 and its
+    plain version round their float32 sums apart, which moves later bf16
+    roundings, and on the 2 s UnetCNN path that alone moved the loss by
+    1.09e-3 of its terms."""
     bf16 = dtype is not None
     loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL) if bf16
                             else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
     space, wave = GWParameterSpace(), run_generator(summary)
     theta = space.sample(TRAIN_BATCH, gen)
-    x, y, cond = make_eval_batch(theta, wave, space)
+    x, y, cond = make_eval_batch(theta, wave, space, summary.get("n_points", 256))
+    cond = cond if summary["conditioned"] else None
     batch = None
     res = {}
     for label in ("kernel", "plain"):
@@ -551,18 +640,31 @@ def check_train_step(model, summary, gen, dtype=None):
             batch = trainer.splitter(gen, x, y, condition=cond)
         with plain_kernels() if bf16 and label == "plain" else contextlib.nullcontext():
             loss = trainer.loss_and_grads(batch)
+            if label == "plain" and term_scale:
+                with torch.no_grad():
+                    log_p = trainer._forward(batch).p_yCc.log_prob(batch["Y_trgt"])
+                scale = torch.maximum(loss.abs(), log_p.abs().sum(dim=-1).mean())
         res[label] = (loss, {n: p.grad for n, p in trainer.model.named_parameters()})
+    gap = None
+    if bf16 and term_scale:
+        trainer = train_gw.build_trainer(summary, 1, "cuda")
+        trainer.model.load_state_dict(model.state_dict())
+        gap = abs(trainer.loss_and_grads(batch) - res["plain"][0]).item()
     torch.cuda.synchronize()
     (loss_k, grads_k), (loss_p, grads_p) = res["kernel"], res["plain"]
-    loss_rel = (abs(loss_k - loss_p) / abs(loss_p)).item()
+    loss_rel = (abs(loss_k - loss_p) / (scale if term_scale else abs(loss_p))).item()
+    loss_ok = loss_rel <= loss_rtol or (
+        gap is not None and abs(loss_k - loss_p).item() <= BF16_PATH_MAX * gap)
     errs, zero = _step_grad_errs(grads_k, grads_p)
     worst, worst_zero = max(errs, key=errs.get), max(zero, key=zero.get)
     print(f"train step{' (bf16)' if bf16 else ''}, kernel vs plain path: loss "
-          f"{loss_k.item():.4f} vs {loss_p.item():.4f} "
-          f"(rel {loss_rel:.3e}); {len(errs)} parameter gradients, worst {errs[worst]:.3e} of "
-          f"its max magnitude ({worst}); {len(zero)} BatchNorm-cancelled biases, largest "
-          f"{zero[worst_zero]:.3e} of their weight's gradient ({worst_zero})")
-    if not (loss_rel <= loss_rtol and errs[worst] <= grad_rtol and zero[worst_zero] <= grad_rtol):
+          f"{loss_k.item():.4f} vs {loss_p.item():.4f} (rel {loss_rel:.3e}"
+          f"{f' of its terms, {scale.item():.1f}' if term_scale else ''}"
+          f"{f'; bf16-float32 gap {gap:.4f}' if gap is not None else ''}); {len(errs)} parameter "
+          f"gradients, worst {errs[worst]:.3e} of its max magnitude ({worst}); {len(zero)} "
+          f"BatchNorm-cancelled biases, largest {zero[worst_zero]:.3e} of their weight's "
+          f"gradient ({worst_zero})")
+    if not (loss_ok and errs[worst] <= grad_rtol and zero[worst_zero] <= grad_rtol):
         raise AssertionError("the kernel-path train step disagrees with the plain path")
     return loss_rel, errs[worst]
 
@@ -602,19 +704,30 @@ def path_launches(name, counted, graph, calls, per_call):
 
 def check_graph_train(summary, dtype=None) -> dict:
     """The train step captured in a CUDA graph against the eager step, two
-    trainers from seed 0 (same init, same generator seed) in compute `dtype`:
-    the counters at the capture, one step (thetas and masks bit-identical,
-    loss and gradients at the step bars), ten steps (each loss within
-    `GRAPH_STEPS_LOSS_RTOL`), ten `train_steps_scanned` steps on stacked
-    batches against eager steps on them, and the kernels of one replay in
-    the profiler's trace. -> {per_replay: launches (K1, K2, K3, K2-bf16,
-    K3-bf16) of one replay, eager_step_ms: the eager step's median}."""
+    trainers from seed 0 (same init, same generator seed) in compute `dtype`
+    on the run's data (`summary`: its waveforms, `n_points`, condition or
+    none, learning rate and clip): the counters at the capture, one step
+    (thetas and masks bit-identical, loss and gradients at the step bars),
+    ten steps (each loss within `GRAPH_STEPS_LOSS_RTOL`), ten
+    `train_steps_scanned` steps on stacked batches against eager steps on
+    them, and the kernels of one replay in the profiler's trace. The one
+    step (loss, gradients, parameters, BatchNorm statistics), the ten
+    steps' losses and their gradients' global norms before the clip must
+    also be bit-identical (cuDNN runs deterministically here). ->
+    {per_replay: launches (K1,
+    K2, K3, K2-bf16, K3-bf16) of one replay, eager_step_ms: the eager
+    step's median, norms: the ten eager steps' norms before the clip}."""
     bf16 = dtype is not None
     tag = " (bf16)" if bf16 else ""
     loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL) if bf16
                             else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
     expected = TRAIN16_CALL if bf16 else TRAIN_CALL
     space, wave = GWParameterSpace(), run_generator(summary)
+    n_points, conditioned = summary.get("n_points", 256), bool(summary["conditioned"])
+
+    def batch(theta):
+        x, y, cond = make_eval_batch(theta, wave, space, n_points)
+        return x, y, cond if conditioned else None
 
     def recorded_trainer():
         """A trainer whose thetas and context masks are kept, step by step."""
@@ -624,12 +737,12 @@ def check_graph_train(summary, dtype=None) -> dict:
         def sample(g):
             theta = space.sample(TRAIN_BATCH, g)
             draws.append([theta])
-            return make_eval_batch(theta, wave, space)
+            return batch(theta)
 
         def splitter(g, x, y, condition=None):
-            batch = split(g, x, y, condition=condition)
-            draws[-1].append(batch["mask_cntxt"])
-            return batch
+            out = split(g, x, y, condition=condition)
+            draws[-1].append(out["mask_cntxt"])
+            return out
 
         trainer.splitter = splitter
         return trainer, sample, draws
@@ -646,7 +759,9 @@ def check_graph_train(summary, dtype=None) -> dict:
         raise AssertionError(f"the capture launched {captured}, not {expected}")
 
     loss_g = t_g.train_steps_generated(sample_g, 1)
-    loss_e = t_e.train_step_cond(*sample_e(t_e.state.generator))["loss"]
+    norms_g = [graph.outputs["grad_norm"].clone()]
+    metrics_e = t_e.train_step_cond(*sample_e(t_e.state.generator))
+    loss_e, norms_e = metrics_e["loss"], [metrics_e["grad_norm"]]
     torch.cuda.synchronize()
     draws_same = all(torch.equal(a, b) for a, b in zip(draws_g[-1], draws_e[-1]))
     grads_g = {n: p.grad for n, p in t_g.model.named_parameters()}
@@ -664,34 +779,52 @@ def check_graph_train(summary, dtype=None) -> dict:
           f"({worst}); BatchNorm-cancelled biases {zero[worst_zero]:.3e}; everything "
           f"bit-identical (loss, gradients, parameters, BatchNorm statistics) {bits}")
     if not (draws_same and loss_rel <= loss_rtol and errs[worst] <= grad_rtol
-            and zero[worst_zero] <= grad_rtol):
+            and zero[worst_zero] <= grad_rtol and bits):
         raise AssertionError(f"the graphed train step{tag} disagrees with the eager step")
 
-    eager, eager_seconds = [loss_e], []
+    eager, eager_seconds, graphed = [loss_e], [], [loss_g]
     for _ in range(GRAPH_STEPS - 1):
         t0 = time.perf_counter()
-        eager.append(t_e.train_step_cond(*sample_e(t_e.state.generator))["loss"])
+        metrics_e = t_e.train_step_cond(*sample_e(t_e.state.generator))
         torch.cuda.synchronize()
         eager_seconds.append(time.perf_counter() - t0)
-    graphed = torch.cat([loss_g, t_g.train_steps_generated(sample_g, GRAPH_STEPS - 1)])
-    eager = torch.stack(eager)
+        eager.append(metrics_e["loss"])
+        norms_e.append(metrics_e["grad_norm"])
+        graphed.append(t_g.train_steps_generated(sample_g, 1))
+        norms_g.append(graph.outputs["grad_norm"].clone())
+    graphed, eager = torch.cat(graphed), torch.stack(eager)
+    norms_g, norms_e = torch.stack(norms_g), torch.stack(norms_e)
     gaps = ((graphed - eager).abs() / eager.abs()).cpu().numpy()
+    bits10 = torch.equal(graphed, eager) and torch.equal(norms_g, norms_e)
     print(f"{GRAPH_STEPS} graphed steps vs {GRAPH_STEPS} eager steps{tag}: largest loss gap "
-          f"{gaps.max():.3e} relative (step {gaps.argmax() + 1}); bit-identical "
-          f"{torch.equal(graphed, eager)}")
-    if gaps.max() > GRAPH_STEPS_LOSS_RTOL:
+          f"{gaps.max():.3e} relative (step {gaps.argmax() + 1}); losses and gradient norms "
+          f"bit-identical {bits10}; norms before the clip "
+          + ", ".join(f"{v:.4g}" for v in norms_e.tolist()))
+    if gaps.max() > GRAPH_STEPS_LOSS_RTOL or not bits10:
         raise AssertionError(f"{GRAPH_STEPS} graphed steps{tag} part from the eager steps")
 
     # train_steps_scanned: the same steps on stacked batches made beforehand,
     # each copied into the graph's inputs, against eager steps on them
+    check_scanned(summary, dtype, batch, conditioned, tag)
+    per_replay = trace_replay(graph, tag)
+    if per_replay != expected:
+        raise AssertionError(f"one replay{tag} launched {per_replay}, not {expected}")
+    return dict(per_replay=per_replay, eager_step_ms=1e3 * float(np.median(eager_seconds)),
+                norms=norms_e.tolist())
+
+
+def check_scanned(summary, dtype, batch, conditioned, tag):
+    """Ten `train_steps_scanned` steps on stacked batches against eager steps
+    on them, from two trainers of seed 0."""
+    space = GWParameterSpace()
     g = torch.Generator(device="cuda").manual_seed(3)
-    xs, ys, conds = (torch.stack(t) for t in zip(*(
-        make_eval_batch(space.sample(TRAIN_BATCH, g), wave, space) for _ in range(GRAPH_STEPS))))
+    made = [batch(space.sample(TRAIN_BATCH, g)) for _ in range(GRAPH_STEPS)]
+    xs, ys = (torch.stack([b[i] for b in made]) for i in range(2))
+    conds = torch.stack([b[2] for b in made]) if conditioned else None
     t_s = train_gw.build_trainer(summary, TRAIN_STEPS, "cuda", seed=0, dtype=dtype)
     t_se = train_gw.build_trainer(summary, TRAIN_STEPS, "cuda", seed=0, dtype=dtype)
     scanned = t_s.train_steps_scanned(xs, ys, conds)
-    eager_scan = torch.stack([t_se.train_step_cond(x, y, c)["loss"]
-                              for x, y, c in zip(xs, ys, conds)])
+    eager_scan = torch.stack([t_se.train_step_cond(*b)["loss"] for b in made])
     scan_gaps = ((scanned - eager_scan).abs() / eager_scan.abs()).cpu().numpy()
     print(f"{GRAPH_STEPS} scanned graphed steps vs {GRAPH_STEPS} eager steps on the same stacked "
           f"batches{tag}: largest loss gap {scan_gaps.max():.3e} relative; bit-identical "
@@ -699,10 +832,60 @@ def check_graph_train(summary, dtype=None) -> dict:
     if scan_gaps.max() > GRAPH_STEPS_LOSS_RTOL:
         raise AssertionError(f"scanned graphed steps{tag} part from the eager steps")
 
-    per_replay = trace_replay(graph, tag)
-    if per_replay != expected:
-        raise AssertionError(f"one replay{tag} launched {per_replay}, not {expected}")
-    return dict(per_replay=per_replay, eager_step_ms=1e3 * float(np.median(eager_seconds)))
+
+def check_family(name, run_dir, dtype, steps, seeds, smi) -> dict:
+    """Phase 14, one training path: the configuration `run_dir` recorded
+    (`train_config`: its architecture, data, learning rate, decay and clip)
+    in compute `dtype`. The graphed step against the eager one, bit for bit
+    (`check_graph_train`); for each of `seeds`, `steps` graphed steps at
+    batch 32 through `train_gw.train`, each printing its median loss over
+    the first and the last 50 steps; at least one draw must fall by
+    `FAMILY_FALL[name]` nats between the two; one step of seed 0's trained
+    model on the kernel path against the plain path; the path's launches
+    from a traced replay of seed 0's graph. -> the path's numbers."""
+    bf16 = dtype is not None
+    label = f"{name}{' (bf16)' if bf16 else ''}"
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = train_config(json.load(f))
+    release()
+    graph_train = check_graph_train(summary, dtype)
+    release()
+    draws = []
+    for seed in seeds:
+        trainer = train_gw.build_trainer(summary, steps, "cuda", seed=seed, dtype=dtype)
+        reset_counts()
+        history, losses, seconds, step_seconds = train_gw.train(trainer, summary, steps,
+                                                                TRAIN_BATCH, time_steps=True)
+        counted = counts()
+        (graph,) = trainer.graphs.values()
+        losses = losses.cpu().numpy()
+        early, late = float(np.median(losses[:50])), float(np.median(losses[-50:]))
+        step_ms = 1e3 * float(np.median(step_seconds))
+        print(f"{label}, seed {seed}: {steps} graphed steps in {seconds:.2f}s, {graph.replays} "
+              "replays; 50-step mean losses: "
+              + ", ".join(f"{h['train_loss']:.1f}" for h in history))
+        print(f"{label}, seed {seed}: median loss over the first 50 steps {early:.2f}, over the "
+              f"last 50 {late:.2f} (fell {early - late:.2f} nats, bar {FAMILY_FALL[name]:.0f}); "
+              f"graphed train step {step_ms:.3f} ms (median of {steps}, host clock, "
+              f"synchronised), eager {graph_train['eager_step_ms']:.3f} ms; {smi}")
+        if graph.replays != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"{label}, seed {seed}: {graph.replays} replays, finite "
+                                 f"{np.isfinite(losses).all()}")
+        draws.append(dict(seed=seed, early=early, late=late, step_ms=step_ms))
+        if seed == seeds[0]:
+            first = (trainer, counted, graph)
+        else:
+            del trainer, graph
+            release()
+    if not any(d["early"] - d["late"] >= FAMILY_FALL[name] for d in draws):
+        raise AssertionError(f"{label}: the loss fell by {FAMILY_FALL[name]} nats in no draw")
+    trainer, counted, graph = first
+    check_train_step(trainer.model, summary, torch.Generator(device="cuda").manual_seed(4), dtype,
+                     term_scale=True)
+    path = path_launches(f"{label} training", counted, graph, WARMUP_CALLS + 1,
+                         TRAIN16_CALL if bf16 else TRAIN_CALL)
+    return dict(path=path, step_ms=draws[0]["step_ms"], eager_step_ms=graph_train["eager_step_ms"],
+                draws=draws, norms=graph_train["norms"], clip=summary.get("grad_clip_norm"))
 
 
 @contextlib.contextmanager
@@ -807,27 +990,39 @@ def graphed_batch_ms(model, splitter, theta, wave, space, reps=5, n_points=256):
 
 def check_run_scores(runs, smi) -> dict:
     """Phase 12: each run scored on its own 2048 recorded thetas, graphed,
-    held to its bands; the long paths' launches from a traced replay of each
-    one's own graph. -> {"long k37" and "long unet": their `path_launches`}."""
+    held to its bands; then in bf16 with the same context draws, its
+    bf16-float32 mean LL gap held within the larger of `BF16_GAP_TOL` nats
+    and `BF16_GAP_SES` standard errors of JAX's own gap on those thetas
+    (`tests/jax_bf16_family_gaps.json`); the long paths' launches from a
+    traced replay of each one's own graph, in each dtype. -> {"long k37",
+    "long unet" and their " bf16": `path_launches`}."""
     misses, paths = [], {}
     for run_dir in runs:
         name = os.path.relpath(run_dir, RESULTS)
         rec_ll, rec_mm = recorded_scores(run_dir)
         bands = score_bands(run_dir)
-        reset_counts()
-        with graph_every_run():
-            out = score_run(run_dir, N_TEST, thetas_from=run_dir, device="cuda")
-        counted = counts()
-        graph = out["graph"]
-        if graph is None or graph.replays != N_TEST // 256 - 1:
-            raise AssertionError(f"{name}: scored without its batch graph's {N_TEST // 256 - 1} "
-                                 "replays")
-        if counted != tuple(2 * c for c in SCORE_CALL):
-            raise AssertionError(f"{name}: wrapper launches {counted} at the eager batch and the "
-                                 f"capture, not {tuple(2 * c for c in SCORE_CALL)}")
-        if not (out["n"] == N_TEST and np.isfinite(out["ll"]).all()
-                and np.isfinite(out["mismatch"]).all()):
-            raise AssertionError(f"{name}: non-finite or missing per-waveform results")
+        outs = {}
+        for dtype, call in ((None, SCORE_CALL), (BF16, SCORE16_CALL)):
+            reset_counts()
+            with graph_every_run():
+                out = score_run(run_dir, N_TEST, thetas_from=run_dir, device="cuda", dtype=dtype)
+            counted = counts()
+            graph = out["graph"]
+            if graph is None or graph.replays != N_TEST // 256 - 1:
+                raise AssertionError(f"{name}: scored without its batch graph's "
+                                     f"{N_TEST // 256 - 1} replays")
+            if counted != tuple(2 * c for c in call):
+                raise AssertionError(f"{name}: wrapper launches {counted} at the eager batch and "
+                                     f"the capture, not {tuple(2 * c for c in call)}")
+            if not (out["n"] == N_TEST and np.isfinite(out["ll"]).all()
+                    and np.isfinite(out["mismatch"]).all()):
+                raise AssertionError(f"{name}: non-finite or missing per-waveform results")
+            outs[dtype] = out
+            if run_dir in (LONG_K37, LONG_UNET):
+                kind = ("long k37" if run_dir == LONG_K37 else "long unet") + (
+                    " bf16" if dtype is not None else "")
+                paths[kind] = path_launches(f"{kind} scoring", counted, graph, 2, call)
+        out, out16 = outs[None], outs[BF16]
         (l0, l1), (m0, m1) = bands["mean_ll"], bands["median_mismatch"]
         inside = l0 <= out["mean_ll"] <= l1 and m0 <= out["median_mismatch"] <= m1
         print(f"{name}: mean LL {out['mean_ll']:.2f} in [{l0:.2f}, {l1:.2f}] (recorded "
@@ -837,14 +1032,25 @@ def check_run_scores(runs, smi) -> dict:
               f"(recorded {np.percentile(rec_mm, 99):.4f}), frac < 0.1 "
               f"{out['frac_below_0.1']:.4f} (recorded {(rec_mm < 0.1).mean():.4f}); inside its "
               f"bands {inside}; {out['seconds']:.2f}s")
+        jax_gap = BF16_GAPS[name]
+        d_ll = out16["ll"] - out["ll"]
+        tol = max(BF16_GAP_TOL, BF16_GAP_SES * jax_gap["d_ll_std"] / jax_gap["n"] ** 0.5)
+        near = abs(d_ll.mean() - jax_gap["d_mean_ll"]) <= tol
+        print(f"{name} bf16: mean LL {out16['mean_ll']:.2f}, gap to float32 {d_ll.mean():+.4f} "
+              f"(sd {d_ll.std():.3f}; JAX's {jax_gap['d_mean_ll']:+.4f}, sd "
+              f"{jax_gap['d_ll_std']:.3f} over {jax_gap['n']}; bar {tol:.3f}) within its bar "
+              f"{near}; median mismatch {out16['median_mismatch']:.5f} (gap "
+              f"{out16['median_mismatch'] - out['median_mismatch']:+.2e}, JAX's "
+              f"{jax_gap['d_median_mismatch']:+.2e}); {out16['seconds']:.2f}s")
         if not inside:
             misses.append(name)
-        if run_dir in (LONG_K37, LONG_UNET):
-            kind = "long k37" if run_dir == LONG_K37 else "long unet"
-            paths[kind] = path_launches(f"{kind} scoring", counted, graph, 2, SCORE_CALL)
-    print(f"{len(runs) - len(misses)} of {len(runs)} runs inside their bands ({smi})")
+        if not near:
+            misses.append(f"{name} (bf16 gap)")
+        del outs, out, out16, graph
+        release()
+    print(f"{len(runs) - len(misses)} of {len(runs)} runs inside their bands and bf16 bars ({smi})")
     if misses:
-        raise AssertionError(f"outside their bands: {', '.join(misses)}")
+        raise AssertionError(f"outside their bands or bars: {', '.join(misses)}")
     return paths
 
 
@@ -1028,6 +1234,11 @@ def main() -> int:
                                      max_real=1024, n_points=2048)),
         ("grid->trgt long", k1_inputs(256, 1536, 2048, 128, sig_trgt_long, gen, max_real="all",
                                       n_points=2048)),
+        # the long-waveform train step at batch 32 (phase 14)
+        ("ctx->grid long train", k1_inputs(TRAIN_BATCH, 2048, 1536, 1, sig_ctx_long, gen, [0],
+                                           max_real=1024, n_points=2048)),
+        ("grid->trgt long train", k1_inputs(TRAIN_BATCH, 1536, 2048, 128, sig_trgt_long, gen,
+                                            max_real="all", n_points=2048)),
         # off the paths: random masks with an empty row, many keys, the
         # long-waveform runs' width (ROADMAP queue 1, item 3)
         ("grid->trgt random mask", k1_inputs(256, 384, 256, 128, sig_trgt, gen, [3])),
@@ -1054,6 +1265,8 @@ def main() -> int:
             ("decoder train", k2_inputs(TRAIN_BATCH * 256, 128, 128, 3, 2, True, gen, dec_w),
              False),
             ("decoder long", k2_inputs(256 * 2048, 128, 128, 3, 2, True, gen, long_dec_w), False),
+            ("decoder long train", k2_inputs(TRAIN_BATCH * 2048, 128, 128, 3, 2, True, gen,
+                                             long_dec_w), False),
             *((name, k2_inputs(M, C, H, L1, O, biases, gen), is_res)
               for name, M, C, H, L1, O, is_res, biases in K2_CASES),
         ])
@@ -1063,6 +1276,8 @@ def main() -> int:
             ("decoder train", k3_inputs(TRAIN_BATCH * 256, 128, 128, 3, 2, True, gen, dec_w[:5]),
              False),
             ("decoder score shape", k3_inputs(65536, 128, 128, 3, 2, True, gen, dec_w[:5]), False),
+            ("decoder long train", k3_inputs(TRAIN_BATCH * 2048, 128, 128, 3, 2, True, gen,
+                                             long_dec_w[:5]), False),
             ("no-hidden residual no-bias", k3_inputs(1000, 128, 128, 0, 3, False, gen), True),
             ("ragged residual", k3_inputs(4099, 37, 64, 2, 5, True, gen), True),
             # widths past one 128-column pass of the kernel's products
@@ -1209,6 +1424,10 @@ def main() -> int:
             ("decoder", k2_inputs(65536, 128, 128, 3, 2, True, gen, dec_w, BF16), False),
             ("decoder train", k2_inputs(TRAIN_BATCH * 256, 128, 128, 3, 2, True, gen, dec_w, BF16),
              False),
+            ("decoder long", k2_inputs(256 * 2048, 128, 128, 3, 2, True, gen, long_dec_w, BF16),
+             False),
+            ("decoder long train", k2_inputs(TRAIN_BATCH * 2048, 128, 128, 3, 2, True, gen,
+                                             long_dec_w, BF16), False),
             *((name, k2_inputs(M, C, H, L1, O, biases, gen, dtype=BF16), is_res)
               for name, M, C, H, L1, O, is_res, biases in K2_CASES),
         ])
@@ -1219,6 +1438,8 @@ def main() -> int:
                                         BF16), False),
             ("decoder score shape", k3_inputs(65536, 128, 128, 3, 2, True, gen, dec_w[:5], BF16),
              False),
+            ("decoder long train", k3_inputs(TRAIN_BATCH * 2048, 128, 128, 3, 2, True, gen,
+                                             long_dec_w[:5], BF16), False),
             ("no-hidden residual no-bias", k3_inputs(1000, 128, 128, 0, 3, False, gen, dtype=BF16),
              True),
             ("ragged residual", k3_inputs(4099, 37, 64, 2, 5, True, gen, dtype=BF16), True),
@@ -1347,8 +1568,9 @@ def main() -> int:
                                  WARMUP_CALLS + 1, TRAIN16_CALL)
 
     del long_model
+    release()
     phase("the other 18 runs: each scored on its own 2048 recorded thetas through K1 and K2, "
-          "held to its bands")
+          "held to its bands, then in bf16 through K1 and K2-bf16, held to JAX's bf16 gap")
     long_paths = check_run_scores(OTHER_RUNS, smi)
     long_ms = {kind: long_batch_ms(run_dir, smi)
                for kind, run_dir in (("k37", LONG_K37), ("unet", LONG_UNET))}
@@ -1357,9 +1579,28 @@ def main() -> int:
           "from the last checkpoint")
     check_resume()
 
+    families = {}
+    for name, run_dir, steps, seeds in FAMILY_RUNS:
+        for dtype in (None, BF16):
+            label = f"{name}{' bf16' if dtype is not None else ''}"
+            phase(f"training path {label}: {os.path.relpath(run_dir, RESULTS)}'s configuration, "
+                  f"graphed against eager, {steps} graphed steps from seeds {seeds}, kernel path "
+                  "against plain")
+            families[label] = check_family(name, run_dir, dtype, steps, seeds, smi)
+    clipped = {k: max(f["norms"]) for k, f in families.items() if f["clip"] is not None}
+    print("long paths, the largest gradient norm before the clip in the ten checked steps: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in clipped.items()))
+    if not any(v > FAMILY_CLIP for v in clipped.values()):
+        raise AssertionError("the clip bound in none of the long paths' checked steps")
+    print(f"training paths (host clock, synchronised; {smi}): " + json.dumps(
+        {k: {m: f[m] for m in ("step_ms", "eager_step_ms", "draws")} for k, f in families.items()}))
+
     paths = {"score": score_path, "train": train_path, "score_bf16": score16_path,
              "train_bf16": train16_path, "score_long_k37": long_paths["long k37"],
-             "score_long_unet": long_paths["long unet"]}
+             "score_long_unet": long_paths["long unet"],
+             "score_bf16_long_k37": long_paths["long k37 bf16"],
+             "score_bf16_long_unet": long_paths["long unet bf16"],
+             **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in families.items()}}
     print(f"long-waveform batch times (host clock; {smi}): " + json.dumps(long_ms))
 
     def launches_by_path(i):

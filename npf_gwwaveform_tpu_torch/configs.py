@@ -5,14 +5,15 @@ not, or the `UnetCNN` (`_unet_factory(5)`), and FiLM or additive parameter
 conditioning.
 
 `gw_model_from_summary` rebuilds a run's model from its `summary.json`, the
-counterpart of `npf_gwwaveform_tpu/configs.py::gw_model_from_summary`;
-`gw_train_summary` states a training run's settings the way
-`experiments/reproduce_gw.py` records them, the flagship's by default.
+counterpart of `npf_gwwaveform_tpu/configs.py::gw_model_from_summary`, in
+float32 or bfloat16 compute; `gw_train_summary` states a training run's
+settings the way `experiments/reproduce_gw.py` records them (the flagship's
+by default), and `run_tag` names its directory as that script does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -20,20 +21,26 @@ from .models.convnp import ConvCNP
 
 R_DIM = 128
 
-__all__ = ["gw_model_from_summary", "gw_train_summary", "run_tag", "R_DIM", "STEPS_PER_EPOCH"]
+__all__ = ["gw_model_from_summary", "gw_train_summary", "run_tag", "train_config", "CONFIG_KEYS",
+           "R_DIM", "STEPS_PER_EPOCH"]
 
 # experiments/reproduce_gw.py decays the learning rate once per 1562 steps
 STEPS_PER_EPOCH = 1562
+# the fields of a `reproduce_gw.py` summary that its flags set (`:472-498`),
+# as against the run's length, throughput, scores and provenance
+CONFIG_KEYS = ("model", "mode", "conditioned", "cond_mode", "n_context", "density_induced",
+               "cnn_kernel_size", "cnn_dilations", "cnn_arch", "cnn_banded", "no_lat_lb",
+               "train_loss_objective", "duration", "n_points", "use_pallas_setconv", "lr",
+               "decay_lr", "grad_clip_norm")
 
 
 def gw_model_from_summary(summary: dict, use_kernels: bool = True,
                           dtype: Optional[torch.dtype] = None) -> ConvCNP:
     """The run's architecture in compute `dtype` (None: float32; bfloat16 as
-    `reproduce_gw.py --bf16` builds it); raises NotImplementedError on a knob
-    the port does not cover (bfloat16 compute is ported for the flat
-    undilated CNN with FiLM only), and ValueError where JAX refuses too
-    (`cnn_arch="unet"` with `cnn_dilations`). A run directory records no
-    dtype: its parameters are float32 either way.
+    `reproduce_gw.py --bf16` builds it, for every family); raises
+    NotImplementedError on a knob the port does not cover, and ValueError
+    where JAX refuses too (`cnn_arch="unet"` with `cnn_dilations`). A run
+    directory records no dtype: its parameters are float32 either way.
 
     The CNN kernel size is the summary's `cnn_kernel_size`, 19 when absent
     (the CNN factory's, not ConvCNP's class default of 11). `cnn_banded` and
@@ -43,16 +50,12 @@ def gw_model_from_summary(summary: dict, use_kernels: bool = True,
     arch = summary.get("cnn_arch", "cnn")
     dilations = summary.get("cnn_dilations") or None
     cond = bool(summary.get("conditioned"))
-    cond_mode = summary.get("cond_mode") or "film"
     unsupported = {
         "model": summary.get("model") != "ConvCNP",
         "cnn_arch": arch not in ("cnn", "unet"),
         "mode": summary.get("mode", "time") != "time",
     }
     bad = [f"{k}={summary.get(k)!r}" for k, v in unsupported.items() if v]
-    if dtype is not None and (arch != "cnn" or dilations or (cond and cond_mode != "film")):
-        bad.append(f"dtype={dtype} with cnn_arch={arch!r}, cnn_dilations={dilations}, "
-                   f"cond_mode={cond_mode!r}")
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
     return ConvCNP(
@@ -61,32 +64,98 @@ def gw_model_from_summary(summary: dict, use_kernels: bool = True,
         cnn_n_blocks=5, cnn_kernel_size=summary.get("cnn_kernel_size") or 19,
         cnn_norm="batch", cnn_n_conv_layers=2, cnn_norm_eps=1e-3,
         cnn_arch=arch, cnn_dilations=dilations,
-        cond_dim=4 if cond else 0, cond_mode=cond_mode,
+        cond_dim=4 if cond else 0, cond_mode=summary.get("cond_mode") or "film",
         use_kernels=use_kernels, dtype=dtype,
     )
 
 
 def gw_train_summary(model: str = "ConvCNP", mode: str = "time", cond: bool = True,
-                     cond_mode: str = "film", n_context: int = 192, density: int = 128,
-                     cnn_arch: str = "cnn") -> dict:
+                     cond_mode: str = "film", n_context: int = 192,
+                     density: Optional[int] = 128, cnn_kernel: Optional[int] = None,
+                     cnn_dilations: Optional[Sequence[int]] = None, cnn_arch: str = "cnn",
+                     duration: float = 1.0, n_points: int = 256, pallas: bool = False,
+                     lr: float = 1e-3, decay_lr: float = 10.0, clip: Optional[float] = None,
+                     banded: bool = False, remat: bool = False) -> dict:
     """The settings of a `reproduce_gw.py` training run as its `summary.json`
-    records them. The defaults are the flagship run `GW_time_cond_film_ctx192_d128`
-    (`--cond --cond-mode film --n-context 192 --density 128`). Training is
-    ported for the flat CNN with FiLM conditioning: any other setting raises
-    NotImplementedError."""
-    if cnn_arch != "cnn" or (cond and cond_mode != "film"):
-        raise NotImplementedError(f"training not ported yet: cnn_arch={cnn_arch!r}, "
-                                  f"cond_mode={cond_mode!r}")
+    records them (`:472-498`): each optional field only where that script
+    writes it (`density_induced` when a density is given, `cnn_kernel_size`,
+    `cnn_dilations` and `cnn_arch` when set, `duration` and `n_points` when
+    the duration is not 1 s, `use_pallas_setconv` with `pallas`, `lr` and
+    `decay_lr` off their defaults, `grad_clip_norm` when a clip is given).
+    The defaults are the flagship run `GW_time_cond_film_ctx192_d128`
+    (`--cond --cond-mode film --n-context 192 --density 128`), not the
+    script's. `pallas` names the tag and the field only: the port runs both
+    SetConvs through K1 on CUDA either way.
+
+    Raises ValueError where JAX refuses (`cnn_arch="unet"` with dilations)
+    and NotImplementedError for what is not ported: another model than
+    ConvCNP, `mode="freq_ap"`, `banded`, `remat`."""
+    unported = {"model": model != "ConvCNP", "mode": mode != "time", "banded": banded,
+                "remat": remat}
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(f"training not ported yet: {', '.join(bad)}")
+    if cnn_arch == "unet" and cnn_dilations:
+        raise ValueError("cnn_dilations are not supported with cnn_arch='unet'")
+    if n_points != 256 and duration == 1.0:
+        # reproduce_gw.py tags such a run `_np{n}` but records no n_points,
+        # so neither its scorer nor the port's could rebuild its data
+        raise NotImplementedError(f"n_points={n_points} at duration 1.0")
     summary = {"model": model, "mode": mode, "conditioned": bool(cond),
-               "cond_mode": cond_mode if cond else None, "n_context": n_context,
-               "density_induced": density}
+               "cond_mode": cond_mode if cond else None, "n_context": n_context}
+    optional = {
+        "density_induced": density or None,
+        "cnn_kernel_size": cnn_kernel or None,
+        "cnn_dilations": [int(d) for d in cnn_dilations] if cnn_dilations else None,
+        "cnn_arch": cnn_arch if cnn_arch != "cnn" else None,
+        "duration": duration if duration != 1.0 else None,
+        "n_points": n_points if duration != 1.0 else None,
+        "use_pallas_setconv": True if pallas else None,
+        "lr": lr if lr != 1e-3 else None,
+        "decay_lr": decay_lr if decay_lr != 10.0 else None,
+        "grad_clip_norm": clip,
+    }
+    summary.update({k: v for k, v in optional.items() if v is not None})
     gw_model_from_summary(summary)  # refuses what is not ported
     return summary
 
 
 def run_tag(summary: dict) -> str:
-    """The run directory's data tag, as `reproduce_gw.py` names it."""
+    """The run directory's data tag, as `reproduce_gw.py:274-298` names it:
+    `GW_{mode}`, `_cond` (additive) or `_cond_film` when conditioned,
+    `_ctx{n}`, then `_d`, `_k`, `_dil`, `_{arch}`, `_banded`, `_latlbF`,
+    `_elbo`, `_T{duration}s`, `_np` and `_pallas`, each only where the run
+    set it. Summaries written before the script recorded `n_context` (and
+    `cond_mode`, then always additive) have no `_ctx` (and tag `_cond`)."""
     tag = f"GW_{summary['mode']}"
     if summary["conditioned"]:
-        tag += "_cond" if summary["cond_mode"] == "add" else "_cond_film"
-    return tag + f"_ctx{summary['n_context']}_d{summary['density_induced']}"
+        tag += "_cond_film" if summary.get("cond_mode", "add") == "film" else "_cond"
+    if "n_context" in summary:
+        tag += f"_ctx{summary['n_context']}"
+    if summary.get("density_induced"):
+        tag += f"_d{summary['density_induced']}"
+    if summary.get("cnn_kernel_size"):
+        tag += f"_k{summary['cnn_kernel_size']}"
+    if summary.get("cnn_dilations"):
+        tag += "_dil" + "-".join(str(d) for d in summary["cnn_dilations"])
+    if summary.get("cnn_arch", "cnn") != "cnn":
+        tag += f"_{summary['cnn_arch']}"
+    if summary.get("cnn_banded"):
+        tag += "_banded"
+    if summary.get("no_lat_lb"):
+        tag += "_latlbF"
+    if summary.get("train_loss_objective") == "elbo":
+        tag += "_elbo"
+    if summary.get("duration", 1.0) != 1.0:
+        tag += f"_T{summary['duration']:g}s"
+    if summary.get("n_points", 256) != 256:
+        tag += f"_np{summary['n_points']}"
+    if summary.get("use_pallas_setconv"):
+        tag += "_pallas"
+    return tag
+
+
+def train_config(summary: dict) -> dict:
+    """A run summary's configuration fields (`CONFIG_KEYS`): what a run
+    trained with the same flags records, whatever its length and scores."""
+    return {k: v for k, v in summary.items() if k in CONFIG_KEYS}

@@ -4,8 +4,9 @@ dilations, `UnetCNN`, flax `BatchNorm`).
 
 The JAX package is channel-last; `CNN` and `UnetCNN` keep that at their
 interface and run their blocks channel-first, the layout of
-`torch.nn.functional.conv1d`. The convolutions, the max-pool and the linear
-upsampling are stock PyTorch, as the JAX package leaves them to XLA.
+`torch.nn.functional.conv1d`. The convolutions and the max-pool are stock
+PyTorch, as the JAX package leaves them to XLA; the linear upsampling is
+written out in elementwise ops (`upsample2_linear`).
 
 `dtype` is the JAX modules' compute dtype: with bfloat16 every convolution
 runs as flax's `nn.Conv(dtype=bfloat16)` (`conv`), while `BatchNorm`, which
@@ -171,6 +172,25 @@ class CNN(nn.Module):
         return x.transpose(1, 2)
 
 
+def upsample2_linear(x: torch.Tensor) -> torch.Tensor:
+    """[..., L] -> [..., 2L]: `jax.image.resize(method="linear")` to twice
+    the length, which is `F.interpolate(mode="linear", align_corners=False)`:
+    output 2i is 0.25 x[i-1] + 0.75 x[i], output 2i+1 is 0.75 x[i] + 0.25
+    x[i+1], and each edge output is its edge input (JAX renormalises the
+    triangle kernel there). The sums run in float32 and round once to x's
+    dtype, as JAX's resize does in bf16 (it casts the weights, 0.25 and 0.75
+    exactly, to the array's dtype and contracts with an f32-accumulating
+    einsum). Unlike `F.interpolate`, whose CUDA backward accumulates with
+    atomic adds in no fixed order, these slices and sums have a
+    deterministic backward, so a captured train step replays the eager one
+    bit for bit."""
+    xf = x.float()
+    lo, hi = xf[..., :-1], xf[..., 1:]
+    even = torch.cat([xf[..., :1], 0.25 * lo + 0.75 * hi], dim=-1)
+    odd = torch.cat([0.75 * lo + 0.25 * hi, xf[..., -1:]], dim=-1)
+    return torch.stack([even, odd], dim=-1).flatten(-2).to(x.dtype)
+
+
 class UnetCNN(nn.Module):
     """U-Net of `ResConvBlock`s named block_0..block_{n-1} over a 1-D grid
     (`npf_gwwaveform_tpu/ops/cnn.py::UnetCNN`); takes and returns
@@ -182,9 +202,8 @@ class UnetCNN(nn.Module):
     the input upsampled linearly to `pooling_size` times its length,
     concatenated with the output of its down block, the last up block
     pairing with the first down block. The upsampling is
-    `jax.image.resize(method="linear")`'s, which at an exact integer factor
-    is `F.interpolate(mode="linear", align_corners=False)`: interior samples
-    on the triangle kernel, each edge sample equal to the edge input.
+    `jax.image.resize(method="linear")`'s (`upsample2_linear`), so the
+    pooling size is 2, the JAX factory's.
     """
 
     def __init__(self, n_channels: int, n_blocks: int = 5, kernel_size: int = 5,
@@ -194,6 +213,8 @@ class UnetCNN(nn.Module):
         super().__init__()
         if n_blocks % 2 != 1:
             raise ValueError(f"n_blocks={n_blocks} must be odd")
+        if pooling_size != 2:
+            raise ValueError(f"pooling_size={pooling_size}: the port upsamples by 2 only")
         self.n_blocks, self.n_down, self.pooling_size = n_blocks, n_blocks // 2, pooling_size
         chans = [2 ** i * n_channels for i in range(self.n_down + 1)]
         chans = chans + chans[::-1]
@@ -214,7 +235,5 @@ class UnetCNN(nn.Module):
             x = F.max_pool1d(x, self.pooling_size, self.pooling_size)
         x = block(self.n_down, x)
         for i in range(self.n_down + 1, self.n_blocks):
-            x = F.interpolate(x, size=x.shape[-1] * self.pooling_size, mode="linear",
-                              align_corners=False)
-            x = block(i, torch.cat([x, residuals[self.n_down - i]], dim=1))
+            x = block(i, torch.cat([upsample2_linear(x), residuals[self.n_down - i]], dim=1))
         return x.transpose(1, 2)

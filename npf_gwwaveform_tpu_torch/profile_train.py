@@ -1,9 +1,12 @@
-"""Where the time of one train step of the flagship configuration goes on the
-card, for the eager step and for the step replayed from its CUDA graph.
+"""Where the time of one train step of a configuration goes on the card, for
+the eager step and for the step replayed from its CUDA graph.
 
     python -m npf_gwwaveform_tpu_torch.profile_train [--batch 32] [--reps 10] [--bf16]
+        [--run-dir RUN_DIR]
 
-Builds the flagship model from the port's init (seed 0). First the eager
+Builds the flagship model, or with `--run-dir` the configuration that run
+recorded (`configs.train_config`: its architecture, data, learning rate and
+clip), from the port's init (seed 0). First the eager
 step: `--reps` steps timed on the host clock (each ends in a device
 synchronise), then one more traced under `torch.profiler` (CPU and CUDA
 activity). Each eager step is annotated data (waveforms and split), forward
@@ -26,16 +29,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import record_function
 
-from .configs import gw_train_summary
-from .data.gw import GWParameterSpace
+from .configs import gw_train_summary, train_config
 from .kernel_measure import event_ms, hand_kernels, measure_step, top_kernels
-from .score import make_eval_batch, run_generator
-from .train_gw import build_trainer
+from .train_gw import batch_sampler, build_trainer
 from .utils.helpers import set_numerics
 
 PHASES = ("data", "forward", "optimizer")
@@ -48,20 +50,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    ap.add_argument("--run-dir", default=None, help="profile that run's configuration")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     set_numerics()
     dtype = torch.bfloat16 if args.bf16 else None
-    summary = gw_train_summary()
+    if args.run_dir is None:
+        summary = gw_train_summary()
+    else:
+        with open(os.path.join(args.run_dir, "summary.json")) as f:
+            summary = train_config(json.load(f))
     trainer = build_trainer(summary, 200_000, "cuda", dtype=dtype)
-    gen, space = run_generator(summary), GWParameterSpace()
+    sample = batch_sampler(summary, args.batch)
     g = trainer.state.generator
 
     def one_step():
         with record_function("data"):
-            theta = space.sample(args.batch, g)
-            x, y, cond = make_eval_batch(theta, gen, space)
+            x, y, cond = sample(g)
             batch = trainer.splitter(g, x, y, condition=cond)
         with record_function("forward"):
             trainer.model.train()
@@ -88,9 +94,6 @@ def main(argv=None) -> dict:
     _print(f"eager train step at batch {args.batch}", eager, args)
     print("  device ms by phase: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
 
-    def sample(generator):
-        return make_eval_batch(space.sample(args.batch, generator), gen, space)
-
     graph = trainer.generated_graph(sample)
     graph.replay()  # the capture
 
@@ -105,7 +108,8 @@ def main(argv=None) -> dict:
     graphed["top"] = top_kernels(kernels, graphed["device_ms"], args.top)
     graphed["hand_kernels"] = hand_kernels(kernels)
     _print(f"graphed train step at batch {args.batch}", graphed, args)
-    res = dict(bf16=args.bf16, batch=args.batch, device=torch.cuda.get_device_name(0),
+    res = dict(run_dir=args.run_dir, bf16=args.bf16, batch=args.batch,
+               device=torch.cuda.get_device_name(0),
                eager=eager, graphed=graphed)
     print(json.dumps(res))
     return res

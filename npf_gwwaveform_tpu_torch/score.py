@@ -109,10 +109,11 @@ def score_batch(model, splitter, generator, theta, gen, space, n_points: int = 2
     the per-draw mismatch averages each z draw's mismatch, as
     `reproduce_gw.py`'s `mm_zdraw` (equal for one draw)."""
     x, y, cond = make_eval_batch(theta, gen, space, n_points)
-    batch = splitter(generator, x, y, condition=cond)
+    # an unconditioned run is scored with no condition, as reproduce_gw.py does
+    batch = splitter(generator, x, y, condition=cond if model.cond_dim > 0 else None)
     out = model(batch["X_cntxt"], batch["Y_cntxt"], batch["X_trgt"],
                  mask_cntxt=batch["mask_cntxt"], mask_trgt=batch["mask_trgt"],
-                 condition=batch["condition"])
+                 condition=batch.get("condition"))
     ll = -CNPFLoss(reduction=None)(out, batch["Y_trgt"], batch["mask_trgt"], train=False)
     loc = out.p_yCc.loc[..., 0]
     mm = mismatch(loc.mean(dim=0), y[..., 0])

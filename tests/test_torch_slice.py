@@ -145,9 +145,10 @@ def test_score_run_on_cpu():
 
 
 def test_gw_model_from_summary_refuses_unported_configs():
-    """What the port still refuses: ConvLNP, frequency-domain targets, the
-    UnetCNN with dilations (JAX refuses it too), bfloat16 for the families
-    ported after the flagship, and training the UnetCNN."""
+    """What the port still refuses: ConvLNP, frequency-domain targets (in
+    a model and in a training summary) and the UnetCNN with dilations (JAX
+    refuses it too). Every time-domain family builds in bfloat16 and
+    trains."""
     with pytest.raises(NotImplementedError):
         gw_model_from_summary({"model": "ConvLNP"})
     with pytest.raises(NotImplementedError):
@@ -156,11 +157,13 @@ def test_gw_model_from_summary_refuses_unported_configs():
         gw_model_from_summary({"model": "ConvCNP", "cnn_arch": "unet",
                                "cnn_dilations": [1, 1, 2, 4, 8]})
     with pytest.raises(NotImplementedError):
-        gw_model_from_summary({"model": "ConvCNP", "cnn_arch": "unet"}, dtype=torch.bfloat16)
+        gw_train_summary(mode="freq_ap")
     with pytest.raises(NotImplementedError):
-        gw_train_summary(cnn_arch="unet")
-    with pytest.raises(NotImplementedError):
-        gw_train_summary(cond_mode="add")
+        gw_train_summary(model="ConvLNP")
+    assert gw_model_from_summary({"model": "ConvCNP", "cnn_arch": "unet"},
+                                 dtype=torch.bfloat16).dtype == torch.bfloat16
+    assert gw_train_summary(cnn_arch="unet")["cnn_arch"] == "unet"
+    assert gw_train_summary(cond_mode="add")["cond_mode"] == "add"
     unet = gw_model_from_summary({"model": "ConvCNP", "cnn_arch": "unet", "conditioned": True,
                                   "cond_mode": "add"})
     assert unet.induced_to_induced.block_3.conv1.depthwise.in_channels == 512
