@@ -1,8 +1,9 @@
 """GW model configurations for the slices the port covers: ConvCNP with
-time-domain targets, the flat CNN (`_cnn_factory(5)`: five ResConvBlocks of
-two depthwise-separable convs, BatchNorm eps 1e-3), dilated per block or
-not, or the `UnetCNN` (`_unet_factory(5)`), and FiLM or additive parameter
-conditioning.
+time-domain targets (`mode` "time", one channel) or frequency-domain
+amplitude and phase targets (`mode` "freq_ap", two channels), the flat CNN
+(`_cnn_factory(5)`: five ResConvBlocks of two depthwise-separable convs,
+BatchNorm eps 1e-3), dilated per block or not, or the `UnetCNN`
+(`_unet_factory(5)`), and FiLM, additive or no parameter conditioning.
 
 `gw_model_from_summary` rebuilds a run's model from its `summary.json`, the
 counterpart of `npf_gwwaveform_tpu/configs.py::gw_model_from_summary`, in
@@ -50,16 +51,17 @@ def gw_model_from_summary(summary: dict, use_kernels: bool = True,
     arch = summary.get("cnn_arch", "cnn")
     dilations = summary.get("cnn_dilations") or None
     cond = bool(summary.get("conditioned"))
+    mode = summary.get("mode", "time")
     unsupported = {
         "model": summary.get("model") != "ConvCNP",
         "cnn_arch": arch not in ("cnn", "unet"),
-        "mode": summary.get("mode", "time") != "time",
+        "mode": mode not in ("time", "freq_ap"),
     }
     bad = [f"{k}={summary.get(k)!r}" for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
     return ConvCNP(
-        x_dim=1, y_dim=1, r_dim=R_DIM,
+        x_dim=1, y_dim=1 if mode == "time" else 2, r_dim=R_DIM,
         density_induced=summary.get("density_induced") or 64,
         cnn_n_blocks=5, cnn_kernel_size=summary.get("cnn_kernel_size") or 19,
         cnn_norm="batch", cnn_n_conv_layers=2, cnn_norm_eps=1e-3,
@@ -87,11 +89,14 @@ def gw_train_summary(model: str = "ConvCNP", mode: str = "time", cond: bool = Tr
     script's. `pallas` names the tag and the field only: the port runs both
     SetConvs through K1 on CUDA either way.
 
-    Raises ValueError where JAX refuses (`cnn_arch="unet"` with dilations)
-    and NotImplementedError for what is not ported: another model than
-    ConvCNP, `mode="freq_ap"`, `banded`, `remat`."""
-    unported = {"model": model != "ConvCNP", "mode": mode != "time", "banded": banded,
-                "remat": remat}
+    `mode` is "time" or "freq_ap" (amplitude and standardised phase on
+    `n_points` frequencies, two output channels). Raises ValueError where
+    JAX refuses (`cnn_arch="unet"` with dilations, another mode) and
+    NotImplementedError for what is not ported: another model than
+    ConvCNP, `banded`, `remat`."""
+    if mode not in ("time", "freq_ap"):
+        raise ValueError(f"mode={mode!r}: 'time' or 'freq_ap'")
+    unported = {"model": model != "ConvCNP", "banded": banded, "remat": remat}
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"training not ported yet: {', '.join(bad)}")

@@ -2,7 +2,7 @@
 draw.
 
     python -m npf_gwwaveform_tpu_torch.loss_by_seed [--seeds 10] [--steps 500]
-        [--batch 32] [--device cuda] [--run-dir RUN_DIR] [--first-seed 0]
+        [--batch 32] [--device cuda] [--run-dir RUN_DIR] [--first-seed 0] [--bf16]
 
 For each seed first-seed..first-seed+seeds-1, draws the model from the port's init with that seed
 and trains it as `chip_smoke.py` does (`train_gw.build_trainer`, `train`),
@@ -10,7 +10,8 @@ then prints the median per-step loss over steps 1-50, 51-100, 251-500 and
 the last 50, and the 50-step means and medians, one line per seed, then one JSON line
 with the same numbers. The configuration is the flagship's, or with
 `--run-dir` the one that run recorded (`configs.train_config`: its
-architecture, data, learning rate, decay and clip). Writes nothing.
+architecture, data, learning rate, decay and clip), in float32 or with
+`--bf16` in bfloat16 compute. Writes nothing.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from .configs import gw_train_summary, train_config
 from .train_gw import build_trainer, train
+from .utils.helpers import set_numerics
 
 
 def main(argv=None) -> list:
@@ -34,9 +36,9 @@ def main(argv=None) -> list:
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--run-dir", default=None, help="train that run's configuration")
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = ap.parse_args(argv)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics()
     if args.run_dir is None:
         summary = gw_train_summary()
     else:
@@ -44,7 +46,8 @@ def main(argv=None) -> list:
             summary = train_config(json.load(f))
     rows = []
     for seed in range(args.first_seed, args.first_seed + args.seeds):
-        trainer = build_trainer(summary, args.steps, args.device, seed=seed)
+        trainer = build_trainer(summary, args.steps, args.device, seed=seed,
+                                dtype=torch.bfloat16 if args.bf16 else None)
         history, losses, seconds, _ = train(trainer, summary, args.steps, args.batch)
         losses = losses.cpu().numpy()
         row = dict(seed=seed, seconds=seconds,

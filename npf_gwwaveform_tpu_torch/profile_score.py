@@ -51,18 +51,19 @@ def main(argv=None) -> dict:
     model = load_model(args.run_dir, "cuda", dtype=dtype)
     gen, space = run_generator(summary), GWParameterSpace()
     splitter, n_points = eval_splitter(summary["n_context"]), summary.get("n_points", 256)
+    mode = summary.get("mode", "time")
     theta = torch.from_numpy(read_run_thetas(args.run_dir)[:256]).cuda()
 
     g = torch.Generator(device="cuda")
 
     def one_batch():
-        score_batch(model, splitter, g.manual_seed(0), theta, gen, space, n_points)
+        score_batch(model, splitter, g.manual_seed(0), theta, gen, space, n_points, mode)
         torch.cuda.synchronize()
 
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         eager = measure_step(one_batch, args.reps)
         # after eager batches, as `score_run` makes it
-        graph = batch_graph(model, splitter, g.manual_seed(0), theta, gen, space, n_points)
+        graph = batch_graph(model, splitter, g.manual_seed(0), theta, gen, space, n_points, mode)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         graph.capture()

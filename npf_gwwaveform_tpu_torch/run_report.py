@@ -4,8 +4,8 @@ run must land in, and a run's training history beside another's.
     python -m npf_gwwaveform_tpu_torch.run_report bands [--results results/]
     python -m npf_gwwaveform_tpu_torch.run_report history --run RUN_DIR --ref RUN_DIR
 
-`bands` prints a markdown table of every time-domain ConvCNP run under
-`--results` that holds parameters: its recorded mean LL and median mismatch
+`bands` prints a markdown table of every GW ConvCNP run under `--results`
+that holds parameters (time-domain and frequency-domain): its recorded mean LL and median mismatch
 (from `eval.csv` and `mismatch_theta.csv`) and the band around each
 (`score_bands`). A rescoring on the run's own recorded thetas differs from
 the record only in its context draws, so the bands come from the recorded
@@ -30,7 +30,7 @@ import os
 
 import numpy as np
 
-__all__ = ["recorded_scores", "score_bands", "scored_runs", "history_at", "main"]
+__all__ = ["recorded_scores", "bands_of", "score_bands", "scored_runs", "history_at", "main"]
 
 N_BOOT, N_RESAMPLE, QUANTILE, WIDEN, BOOT_SEED = 10_000, 1024, 0.99, 0.5, 0
 HISTORY_STEPS, HISTORY_WINDOW = (10_000, 50_000, 100_000, 150_000, 200_000), 1000
@@ -44,11 +44,10 @@ def recorded_scores(run_dir: str) -> tuple:
     return ll, mm
 
 
-def score_bands(run_dir: str) -> dict:
+def bands_of(ll: np.ndarray, mm: np.ndarray) -> dict:
     """{"mean_ll": (lo, hi), "median_mismatch": (lo, hi)}: each statistic's
-    99% bootstrap interval at 1024 of the recorded waveforms, widened by half
-    its half-width on each side."""
-    ll, mm = recorded_scores(run_dir)
+    99% bootstrap interval at 1024 of the per-waveform values, widened by
+    half its half-width on each side."""
     idx = np.random.default_rng(BOOT_SEED).integers(0, ll.shape[0], (N_BOOT, N_RESAMPLE))
     out = {}
     for name, stat in (("mean_ll", ll[idx].mean(axis=1)),
@@ -59,11 +58,16 @@ def score_bands(run_dir: str) -> dict:
     return out
 
 
+def score_bands(run_dir: str) -> dict:
+    """`bands_of` the run's recorded scores."""
+    return bands_of(*recorded_scores(run_dir))
+
+
 def scored_runs(results: str = "results") -> list:
-    """The time-domain ConvCNP run directories under `results` that hold
-    parameters, sorted."""
+    """The GW ConvCNP run directories under `results` that hold parameters
+    (time-domain and frequency-domain), sorted."""
     return sorted(os.path.dirname(p) for p in glob.glob(
-        os.path.join(results, "GW_time*", "ConvCNP", "run_*", "params.msgpack")))
+        os.path.join(results, "GW_*", "ConvCNP", "run_*", "params.msgpack")))
 
 
 def history_at(history: list, step: int) -> tuple:

@@ -1,16 +1,22 @@
 """Score a frozen GW ConvCNP run: the port's counterpart of the eval block of
 `experiments/reproduce_gw.py` (`--eval-only`).
 
-It scores any time-domain ConvCNP run `reproduce_gw.py` wrote (the flat CNN,
-dilated or not, or the UnetCNN; FiLM or additive conditioning; 1 s or the
-2 s long waveforms). Each eval batch (256 waveforms) generates time-domain
-waveforms at 1024 Hz over the run's `duration` (1 s unless the summary says
-otherwise), keeps `n_points` evenly strided samples of them (256 unless the
-summary says otherwise: every 4th of 1024; the long runs keep all 2048) on
-x in [-1, 1], splits them into
-a context of U{0..n_context} points per waveform and all points as targets,
-conditions on the normalised parameters, and records per waveform the NPML
-log-likelihood and the white-noise mismatch of the predictive mean. On
+It scores any ConvCNP run `reproduce_gw.py` wrote (the flat CNN, dilated or
+not, or the UnetCNN; FiLM, additive or no conditioning; time-domain data, 1 s
+or the 2 s long waveforms, or frequency-domain data). Each eval batch (256
+waveforms) generates waveforms at 1024 Hz over the run's `duration` (1 s
+unless the summary says otherwise). In the time domain (`mode` "time") it
+keeps `n_points` evenly strided samples of them (256 unless the summary says
+otherwise: every 4th of 1024; the long runs keep all 2048); in the
+frequency domain (`mode` "freq_ap") it takes amplitude and standardised
+phase on `n_points` frequencies from 20 to 1024 Hz, two channels. On x in
+[-1, 1] it splits them into a context of U{0..n_context} points per
+waveform and all points as targets, conditions on the normalised
+parameters where the run was conditioned, and records per waveform the NPML
+log-likelihood and the mismatch of the predictive mean: white-noise and in
+the time domain for "time"; for "freq_ap" the aLIGO-weighted
+frequency-domain match of h(f) = A exp(-i psi sigma), prediction and truth
+both rebuilt with the waveform's true phase std sigma. On
 CUDA, where enough batches follow to pay for its capture, the first batch
 runs eagerly and every later batch of 256 is one replay of a CUDA graph
 that holds all of it, the waveforms and the split included (`batch_graph`).
@@ -43,12 +49,15 @@ import torch
 
 from .configs import gw_model_from_summary
 from .data.datasplit import CntxtTrgtSplitter, GetRandomIndcs, get_all_indcs
-from .data.gw import GWParameterSpace, GWWaveformGenerator, mismatch
+from .data.gw import (
+    GWParameterSpace, GWWaveformGenerator, make_batch, mismatch, mismatch_fd, polar_conj,
+    psd_aligo,
+)
 from .losses import CNPFLoss
 from .models.convnp import ConvCNP
 from .training.checkpoint import load_run_params, params_from_flax
 from .utils.cuda_graph import StepGraph
-from .utils.helpers import linspace, set_numerics
+from .utils.helpers import set_numerics
 
 EVAL_BATCH = 256
 # the fewest replays of the batch graph that pay for its capture: on an H100
@@ -93,36 +102,57 @@ def run_generator(summary: dict) -> GWWaveformGenerator:
 
 
 def make_eval_batch(theta: torch.Tensor, gen: GWWaveformGenerator, space: GWParameterSpace,
-                    n_points: int = 256):
-    """theta [B,4] -> (x [B,n_points,1], y [B,n_points,1], condition [B,4])."""
-    stride = gen.n_time // n_points
-    _, h = gen.time_domain(theta)
-    h = h[:, gen.n_time - n_points * stride::stride][:, :n_points]
-    x = linspace(-1.0, 1.0, n_points, device=theta.device)
-    x = x[None, :, None].expand(theta.shape[0], n_points, 1)
-    return x, h[..., None], space.normalize(theta)
+                    n_points: int = 256, mode: str = "time", return_aux: bool = False):
+    """theta [B,4] -> (x [B,n_points,1], y [B,n_points,y_dim], condition
+    [B,4]) of the run's data (`data.gw.make_batch`), and with `return_aux`
+    the per-waveform phase std [B] of "freq_ap" data (None for "time")."""
+    batch = make_batch(theta, gen, space, n_points, mode)
+    return batch if return_aux else batch[:3]
 
 
-def score_batch(model, splitter, generator, theta, gen, space, n_points: int = 256):
+def _recon(ap: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """(amplitude, standardised phase) [..., 2] and the true phase std
+    [B, 1] -> h(f) = A exp(-i psi sigma), complex64: float32 whatever the
+    model's compute dtype, as JAX promotes bf16 x f32."""
+    ap = ap.float()
+    return polar_conj(ap[..., 0], ap[..., 1] * sigma)
+
+
+def score_batch(model, splitter, generator, theta, gen, space, n_points: int = 256,
+                mode: str = "time"):
     """Per-waveform (log-likelihood [B], mismatch [B], per-draw mismatch [B],
     NPFOutput) of one batch. The mismatch is the predictive mixture mean's;
     the per-draw mismatch averages each z draw's mismatch, as
-    `reproduce_gw.py`'s `mm_zdraw` (equal for one draw)."""
-    x, y, cond = make_eval_batch(theta, gen, space, n_points)
+    `reproduce_gw.py`'s `mm_zdraw` (equal for one draw). "time": the
+    white-noise time-domain mismatch of the first channel; "freq_ap": the
+    aLIGO-weighted `mismatch_fd` of the rebuilt h(f), as `reproduce_gw.py`'s
+    `eval_batch` scores that mode."""
+    x, y, cond, sigma = make_eval_batch(theta, gen, space, n_points, mode, return_aux=True)
     # an unconditioned run is scored with no condition, as reproduce_gw.py does
     batch = splitter(generator, x, y, condition=cond if model.cond_dim > 0 else None)
     out = model(batch["X_cntxt"], batch["Y_cntxt"], batch["X_trgt"],
                  mask_cntxt=batch["mask_cntxt"], mask_trgt=batch["mask_trgt"],
                  condition=batch.get("condition"))
     ll = -CNPFLoss(reduction=None)(out, batch["Y_trgt"], batch["mask_trgt"], train=False)
-    loc = out.p_yCc.loc[..., 0]
-    mm = mismatch(loc.mean(dim=0), y[..., 0])
+    loc = out.p_yCc.loc
+    if mode == "time":
+        def mm_of(pred):
+            return mismatch(pred[..., 0], y[..., 0])
+    else:
+        psd = psd_aligo(gen.freqs(n_points, device=theta.device))
+        sigma = sigma[:, None]
+        h_true = _recon(y, sigma)
+
+        def mm_of(pred):
+            return mismatch_fd(_recon(pred, sigma), h_true, psd=psd)
+    mm = mm_of(loc.mean(dim=0))
     # one draw (every CNPF model): exactly the mixture's, as reproduce_gw.py records it
-    mm_zdraw = mm if loc.shape[0] == 1 else mismatch(loc, y[None, ..., 0]).mean(dim=0)
+    mm_zdraw = mm if loc.shape[0] == 1 else torch.stack([mm_of(l) for l in loc]).mean(dim=0)
     return ll, mm, mm_zdraw, out
 
 
-def batch_graph(model, splitter, generator, theta, gen, space, n_points: int = 256) -> StepGraph:
+def batch_graph(model, splitter, generator, theta, gen, space, n_points: int = 256,
+                mode: str = "time") -> StepGraph:
     """`score_batch`'s (log-likelihood, mismatch, per-draw mismatch) for
     thetas shaped as `theta`, as a CUDA graph with `generator` registered: a
     replay takes a batch's thetas and draws its split as the next eager
@@ -130,8 +160,9 @@ def batch_graph(model, splitter, generator, theta, gen, space, n_points: int = 2
     `score_batch` of the same model and shapes, which made what the capture
     needs (under `torch.inference_mode` a batch moves no state but the
     generator). Run it under `torch.inference_mode`."""
-    return StepGraph(lambda t: score_batch(model, splitter, generator, t, gen, space, n_points)[:3],
-                     [theta.clone()], model, [generator], warmup_calls=0)
+    return StepGraph(
+        lambda t: score_batch(model, splitter, generator, t, gen, space, n_points, mode)[:3],
+        [theta.clone()], model, [generator], warmup_calls=0)
 
 
 def eval_splitter(n_context: int) -> CntxtTrgtSplitter:
@@ -189,7 +220,7 @@ def score_run(run_dir: str, n_test: int = 2048, thetas_from: Optional[str] = Non
         summary = json.load(f)
     model = load_model(run_dir, device, use_kernels, dtype)
     gen, space = run_generator(summary), GWParameterSpace()
-    n_points = summary.get("n_points", 256)
+    n_points, mode = summary.get("n_points", 256), summary.get("mode", "time")
     splitter = eval_splitter(summary["n_context"])
     generator = torch.Generator(device=device).manual_seed(seed)
     n = n_scored(n_test)
@@ -209,9 +240,10 @@ def score_run(run_dir: str, n_test: int = 2048, thetas_from: Optional[str] = Non
                 ll, mm, mz = (t.clone() for t in graph.replay(theta))
             else:
                 ll, mm, mz = score_batch(model, splitter, generator, theta, gen, space,
-                                         n_points)[:3]
+                                         n_points, mode)[:3]
             if graphed and graph is None:  # after the eager batch above
-                graph = batch_graph(model, splitter, generator, theta, gen, space, n_points)
+                graph = batch_graph(model, splitter, generator, theta, gen, space, n_points,
+                                    mode)
             lls.append(ll)
             mms.append(mm)
             mzs.append(mz)

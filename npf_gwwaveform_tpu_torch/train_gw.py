@@ -1,10 +1,10 @@
 """Train a GW ConvCNP and score it: the port's counterpart of the training and
-eval blocks of `experiments/reproduce_gw.py`, for every time-domain ConvCNP
-configuration that script trains.
+eval blocks of `experiments/reproduce_gw.py`, for every ConvCNP
+configuration that script trains, on time-domain or frequency-domain data.
 
     python -m npf_gwwaveform_tpu_torch.train_gw [--steps N] [--batch 32]
         [--lr 1e-3] [--decay-lr 10] [--clip NORM] [--seed 0] [--device cuda]
-        [--no-cond] [--cond-mode film|add] [--n-context 192] [--density 128]
+        [--mode time|freq_ap] [--no-cond] [--cond-mode film|add] [--n-context 192] [--density 128]
         [--cnn-kernel K] [--cnn-dilations 1,1,2,4,8] [--cnn-arch cnn|unet]
         [--duration 1.0] [--n-points 256] [--pallas]
         [--out runs_torch/] [--run 0] [--n-test 2048] [--thetas-from RUN_DIR]
@@ -24,9 +24,10 @@ clips the gradients' global norm (none by default, as `reproduce_gw.py`
 for ConvCNP).
 
 Each step draws `--batch` waveforms on the device (the run's generator at
-1024 Hz over `--duration` seconds, `--n-points` evenly strided samples of
-them: every 4th of 1024 for 1 s, all 2048 for the 2 s long waveforms),
-splits them with one context count U{0..n_context} for the whole batch (the
+1024 Hz over `--duration` seconds; `--mode time`: `--n-points` evenly
+strided samples of them, every 4th of 1024 for 1 s, all 2048 for the 2 s
+long waveforms; `--mode freq_ap`: amplitude and standardised phase on
+`--n-points` frequencies from 20 to 1024 Hz, two channels), splits them with one context count U{0..n_context} for the whole batch (the
 JAX training splitter), and takes one Adam step on the CNPF loss
 (conditioned on the normalised parameters, or with no condition under
 `--no-cond`, as `reproduce_gw.py`'s `one_step`), the learning rate decaying
@@ -133,15 +134,15 @@ def load_params_into(model: torch.nn.Module, run_dir: str) -> None:
 
 def batch_sampler(summary: dict, batch: int):
     """sample(generator) -> (x, y, condition) of `batch` fresh training
-    waveforms of the run's data (its generator, `n_points`), drawn on the
+    waveforms of the run's data (its generator, `n_points`, `mode`), drawn on the
     generator's device; the condition is None for an unconditioned run, as
     `reproduce_gw.py`'s `one_step` passes none."""
     gen, space = run_generator(summary), GWParameterSpace()
-    n_points = summary.get("n_points", 256)
+    n_points, mode = summary.get("n_points", 256), summary.get("mode", "time")
     conditioned = bool(summary["conditioned"])
 
     def sample(generator):
-        x, y, cond = make_eval_batch(space.sample(batch, generator), gen, space, n_points)
+        x, y, cond = make_eval_batch(space.sample(batch, generator), gen, space, n_points, mode)
         return x, y, cond if conditioned else None
     return sample
 
@@ -250,6 +251,8 @@ def parser() -> argparse.ArgumentParser:
                     help="clip the gradients' global norm (default: none)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mode", default="time", choices=["time", "freq_ap"],
+                    help="time-domain waveforms, or amplitude and phase in frequency")
     ap.add_argument("--no-cond", action="store_true",
                     help="no conditioning on the parameters")
     ap.add_argument("--cond-mode", default="film", choices=["add", "film"])
@@ -277,7 +280,7 @@ def summary_from_args(args: argparse.Namespace) -> dict:
     """The run's settings from `parser()`'s arguments (`gw_train_summary`)."""
     dilations = [int(d) for d in args.cnn_dilations.split(",")] if args.cnn_dilations else None
     return gw_train_summary(
-        cond=not args.no_cond, cond_mode=args.cond_mode, n_context=args.n_context,
+        mode=args.mode, cond=not args.no_cond, cond_mode=args.cond_mode, n_context=args.n_context,
         density=args.density or None, cnn_kernel=args.cnn_kernel, cnn_dilations=dilations,
         cnn_arch=args.cnn_arch, duration=args.duration, n_points=args.n_points,
         pallas=args.pallas, lr=args.lr, decay_lr=args.decay_lr, clip=args.clip)

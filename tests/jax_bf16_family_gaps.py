@@ -1,7 +1,8 @@
 """The JAX package's own gap between bfloat16 and float32 scoring of every
-time-domain ConvCNP run in `results/` but the flagship's `run_1` (which
-`tests/jax_bf16_score_gap.py` covers), for setting the port's bf16 scoring
-bars. Not a test: run it by hand on the CPU.
+GW ConvCNP run in `results/` but the flagship's `run_1` (which
+`tests/jax_bf16_score_gap.py` covers), time-domain and frequency-domain,
+for setting the port's bf16 scoring bars. Not a test: run it by hand on the
+CPU.
 
     JAX_PLATFORMS=cpu python tests/jax_bf16_family_gaps.py [--n 2048] [--n-long 256]
         [--long-batch 256] [--out tests/jax_bf16_family_gaps.json] [--runs RUN_DIR ...]
@@ -10,8 +11,10 @@ Each run is scored on its first `--n` recorded thetas (`--n-long` for the
 2 s long-waveform runs, whose bf16 model with the chain in interpret mode is
 slow on the CPU) in batches of 256 (`--long-batch` for the long runs: the
 interpret-mode chain holds about 25 GB at 256 long waveforms), with the
-run's own generator (1024 Hz over its duration, `n_points` evenly strided
-samples) and the eval split's U{0..n_context}
+run's own generator (1024 Hz over its duration; `n_points` evenly strided
+samples, or for a `freq_ap` run amplitude and standardised phase on
+`n_points` frequencies, scored with `reproduce_gw.py`'s PSD-weighted
+frequency-domain mismatch of the rebuilt h(f)) and the eval split's U{0..n_context}
 context counts drawn from one key per batch, with the run's parameters two
 ways on the same inputs: float32 (`gw_model_from_summary`) and bfloat16
 with the fused MLP-chain decoder (`fused_mlp=True`, the Pallas chain in
@@ -21,9 +24,13 @@ SetConv (`use_pallas_setconv=False`): the Pallas one computes the same
 function to float32 rounding and is slow in interpret mode. Writes, per run
 (keyed by its path under `results/`), the number scored and the batch, each
 way's mean log-likelihood and median mismatch, the bf16-minus-float32 difference of
-the means and of the medians, and the mean and standard deviation of the
-per-waveform log-likelihood differences, into `--out` as JSON, and prints
-one line a run.
+the means and of the medians, the mean and standard deviation of the
+per-waveform log-likelihood differences and, for a `freq_ap` run, the
+float32 scores' bands (`f32_bands`: `run_report.bands_of`, the rule of the
+recorded scores' bands; the records of those runs sit between the JAX
+package's float32 and bf16 scores on the CPU, so the port's float32
+rescoring is held to the JAX package's own), into `--out` as JSON, and
+prints one line a run.
 
 XLA's excess precision is turned off (`--xla_allow_excess_precision=false`)
 so that every bf16 op under jit rounds its result, as the ops read and as
@@ -51,8 +58,9 @@ from npf_gwwaveform_tpu.configs import gp_model_1d, gw_model_from_summary  # noq
 from npf_gwwaveform_tpu.data import (  # noqa: E402
     CntxtTrgtSplitter, GetRandomIndcs, GWParameterSpace, GWWaveformGenerator, get_all_indcs,
 )
-from npf_gwwaveform_tpu.data.gw import mismatch  # noqa: E402
+from npf_gwwaveform_tpu.data.gw import mismatch, mismatch_fd, psd_aligo  # noqa: E402
 from npf_gwwaveform_tpu.losses import CNPFLoss  # noqa: E402
+from npf_gwwaveform_tpu_torch.run_report import bands_of  # noqa: E402
 
 RESULTS = os.path.join(ROOT, "results")
 FLAGSHIP = os.path.join("GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1")
@@ -72,7 +80,8 @@ def models(summary):
                        cnn_dilations=tuple(dilations) if dilations else None,
                        cnn_arch=summary.get("cnn_arch", "cnn"))
     cond = bool(summary.get("conditioned"))
-    bf16 = bf16.clone(y_dim=1, cond_dim=4 if cond else 0,
+    bf16 = bf16.clone(y_dim=1 if summary.get("mode", "time") == "time" else 2,
+                      cond_dim=4 if cond else 0,
                       cond_mode=summary.get("cond_mode") or "film", fused_mlp=True,
                       **({"density_induced": summary["density_induced"]}
                          if summary.get("density_induced") else {}))
@@ -95,20 +104,37 @@ def gap(run_dir, n, batch):
     n_points = summary.get("n_points", 256)
     stride = gen.n_time // n_points
     cond = bool(summary.get("conditioned"))
+    freq = summary.get("mode", "time") == "freq_ap"
+
+    def data(theta):
+        """reproduce_gw.py's make_batch: (y, mismatch of a prediction)."""
+        if not freq:
+            _, h = gen.time_domain(theta)
+            y = h[..., -n_points * stride::stride][..., :n_points, None]
+            return y, lambda loc: mismatch(loc[..., 0], y[..., 0])
+        fd = gen.frequency_domain(theta, n_f=n_points)
+        sigma = jnp.std(fd.phase, -1, keepdims=True)
+        psi = (fd.phase - jnp.mean(fd.phase, -1, keepdims=True)) / (sigma + 1e-8)
+        y = jnp.stack([fd.amplitude, psi], axis=-1)
+        psd = psd_aligo(gen.freqs(n_points))
+
+        def recon(ap):
+            return ap[..., 0] * jnp.exp(-1j * ap[..., 1] * sigma)
+        return y, lambda loc: mismatch_fd(recon(loc), recon(y), psd=psd)
 
     def scorer(model):
         @jax.jit
         def score(theta, key):
-            _, h = gen.time_domain(theta)
-            y = h[..., -n_points * stride::stride][..., :n_points, None]
-            x = jnp.broadcast_to(jnp.linspace(-1.0, 1.0, n_points)[None, :, None], y.shape)
+            y, mismatch_of = data(theta)
+            x = jnp.broadcast_to(jnp.linspace(-1.0, 1.0, n_points)[None, :, None],
+                                 y.shape[:2] + (1,))
             batch = splitter(key, x, y, condition=space.normalize(theta) if cond else None)
             out = model.apply(variables, batch["X_cntxt"], batch["Y_cntxt"], batch["X_trgt"],
                               mask_cntxt=batch["mask_cntxt"], mask_trgt=batch["mask_trgt"],
                               **({"condition": batch["condition"]} if cond else {}),
                               train=False)
             ll = -CNPFLoss(reduction=None)(out, batch["Y_trgt"], batch["mask_trgt"], train=False)
-            return ll, mismatch(out.p_yCc.loc[0, ..., 0], y[..., 0])
+            return ll, mismatch_of(out.p_yCc.loc[0])
         return score
 
     res = []
@@ -121,7 +147,8 @@ def gap(run_dir, n, batch):
                     for k in range(2)])
     (ll32, mm32), (ll16, mm16) = res
     d = ll16 - ll32
-    return {"n": int(len(thetas)), "batch": batch,
+    bands = {"f32_bands": bands_of(ll32, mm32)} if freq else {}
+    return {"n": int(len(thetas)), "batch": batch, **bands,
             "f32": {"mean_ll": float(ll32.mean()), "median_mismatch": float(np.median(mm32))},
             "bf16": {"mean_ll": float(ll16.mean()), "median_mismatch": float(np.median(mm16))},
             "d_mean_ll": float(ll16.mean() - ll32.mean()),
@@ -136,11 +163,11 @@ def main() -> None:
     ap.add_argument("--long-batch", type=int, default=256)
     ap.add_argument("--out", default=os.path.join(ROOT, "tests", "jax_bf16_family_gaps.json"))
     ap.add_argument("--runs", nargs="*", default=None,
-                    help="run dirs (default: every time-domain ConvCNP run with parameters)")
+                    help="run dirs (default: every GW ConvCNP run with parameters)")
     args = ap.parse_args()
     runs = args.runs or sorted(
         os.path.dirname(p) for p in glob.glob(
-            os.path.join(RESULTS, "GW_time*", "ConvCNP", "run_*", "params.msgpack"))
+            os.path.join(RESULTS, "GW_*", "ConvCNP", "run_*", "params.msgpack"))
         if not os.path.dirname(p).endswith(FLAGSHIP))
     out = {}
     if os.path.exists(args.out):

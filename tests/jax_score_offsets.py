@@ -8,7 +8,10 @@ test: run it by hand on the CPU.
 takes its thetas and context masks from `fold_in(PRNGKey(123), i)`, whatever
 the run. This script draws that set again for the first `--n` recorded
 waveforms (and checks the thetas it draws against the recorded ones), makes
-their waveforms with the JAX generator, and scores the run in float32 on the
+their waveforms with the JAX generator (time-domain, or for a `freq_ap` run
+amplitude and standardised phase, scored with the PSD-weighted
+frequency-domain mismatch of h(f) rebuilt with each waveform's phase std,
+as `reproduce_gw.py` does), and scores the run in float32 on the
 CPU with the JAX package (`use_pallas_setconv=False`, the same function as
 the Pallas SetConv) and with the port, on the same waveforms, under two
 kinds of draws:
@@ -44,8 +47,12 @@ from npf_gwwaveform_tpu.data import (  # noqa: E402
     CntxtTrgtSplitter, GetRandomIndcs, GWParameterSpace, GWWaveformGenerator, get_all_indcs,
 )
 from npf_gwwaveform_tpu.data.gw import mismatch as jax_mismatch  # noqa: E402
+from npf_gwwaveform_tpu.data.gw import mismatch_fd as jax_mismatch_fd  # noqa: E402
+from npf_gwwaveform_tpu.data.gw import psd_aligo as jax_psd_aligo  # noqa: E402
 from npf_gwwaveform_tpu.losses import CNPFLoss as JaxCNPFLoss  # noqa: E402
-from npf_gwwaveform_tpu_torch.data.gw import mismatch  # noqa: E402
+from npf_gwwaveform_tpu_torch.data.gw import (  # noqa: E402
+    mismatch, mismatch_fd, polar_conj, psd_aligo,
+)
 from npf_gwwaveform_tpu_torch.losses import CNPFLoss  # noqa: E402
 from npf_gwwaveform_tpu_torch.run_report import recorded_scores  # noqa: E402
 from npf_gwwaveform_tpu_torch.score import eval_splitter, load_model, read_run_thetas  # noqa: E402
@@ -84,14 +91,23 @@ def main() -> None:
         contexts_getter=GetRandomIndcs(a=0.0, b=n_context, is_indep_n=True),
         targets_getter=get_all_indcs)
 
+    freq = summary.get("mode", "time") == "freq_ap"
     # the record's eval draws, batch by batch, as reproduce_gw.py's eval_batch
-    ys, conds, masks = [], [], {"jax": []}
+    ys, conds, masks, sigmas = [], [], {"jax": []}, []
     for i in range(args.n // EVAL_BATCH):
         kd, ks, _ = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(123), i), 3)
         theta = space.sample(kd, EVAL_BATCH)
-        _, h = gen.time_domain(theta)
-        y = h[..., -n_points * stride::stride][..., :n_points, None]
-        x = jnp.broadcast_to(jnp.linspace(-1.0, 1.0, n_points)[None, :, None], y.shape)
+        if freq:
+            fd = gen.frequency_domain(theta, n_f=n_points)
+            sigma = jnp.std(fd.phase, -1, keepdims=True)
+            psi = (fd.phase - jnp.mean(fd.phase, -1, keepdims=True)) / (sigma + 1e-8)
+            y = jnp.stack([fd.amplitude, psi], axis=-1)
+            sigmas.append(np.asarray(sigma))
+        else:
+            _, h = gen.time_domain(theta)
+            y = h[..., -n_points * stride::stride][..., :n_points, None]
+        x = jnp.broadcast_to(jnp.linspace(-1.0, 1.0, n_points)[None, :, None],
+                             y.shape[:2] + (1,))
         batch = splitter(ks, x, y, condition=space.normalize(theta))
         ys.append(np.asarray(y))
         conds.append(np.asarray(batch["condition"]))
@@ -101,9 +117,10 @@ def main() -> None:
                                    read_run_thetas(args.run)[i * EVAL_BATCH:(i + 1) * EVAL_BATCH],
                                    rtol=1e-5, atol=1e-5)
     y, cond = np.concatenate(ys), np.concatenate(conds)
+    sigma = np.concatenate(sigmas) if freq else np.zeros((args.n, 1), np.float32)
     masks["jax"] = np.concatenate(masks["jax"])
     x = np.broadcast_to(np.asarray(jnp.linspace(-1.0, 1.0, n_points))[None, :, None],
-                        y.shape).copy()
+                        y.shape[:2] + (1,)).copy()
     # the port's draws, 256 waveforms a draw from one generator, as score_run
     split = eval_splitter(n_context)
     for seed in (int(s) for s in args.seeds.split(",")):
@@ -116,24 +133,38 @@ def main() -> None:
     variables = {"params": _restore(os.path.join(args.run, "params.msgpack")),
                  **_restore(os.path.join(args.run, "extra_vars.msgpack"))}
 
+    conditioned = bool(summary.get("conditioned"))
+    psd = jax_psd_aligo(gen.freqs(n_points))
+
     @jax.jit
-    def jax_score(x, y, mask_c, cond):
+    def jax_score(x, y, mask_c, cond, sigma):
         mask_t = jnp.ones(mask_c.shape, bool)
-        out = jm.apply(variables, x, y, x, mask_cntxt=mask_c, mask_trgt=mask_t, condition=cond,
-                       train=False)
+        out = jm.apply(variables, x, y, x, mask_cntxt=mask_c, mask_trgt=mask_t, train=False,
+                       **({"condition": cond} if conditioned else {}))
         ll = -JaxCNPFLoss(reduction=None)(out, y, mask_t, train=False)
-        return ll, jax_mismatch(out.p_yCc.loc[0, ..., 0], y[..., 0])
+        if not freq:
+            return ll, jax_mismatch(out.p_yCc.loc[0, ..., 0], y[..., 0])
+
+        def recon(ap):
+            return ap[..., 0] * jnp.exp(-1j * ap[..., 1] * sigma)
+        return ll, jax_mismatch_fd(recon(out.p_yCc.loc[0]), recon(y), psd=psd)
 
     tm = load_model(args.run, "cpu")
+    psd_t = torch.from_numpy(np.array(psd))
 
-    def port_score(x, y, mask_c, cond):
-        x, y, mask_c, cond = (torch.from_numpy(np.ascontiguousarray(a))
-                              for a in (x, y, mask_c, cond))
+    def port_score(x, y, mask_c, cond, sigma):
+        x, y, mask_c, cond, sigma = (torch.from_numpy(np.ascontiguousarray(a))
+                                     for a in (x, y, mask_c, cond, sigma))
         mask_t = torch.ones_like(mask_c)
         with torch.no_grad():
-            out = tm(x, y, x, mask_c, mask_t, cond)
+            out = tm(x, y, x, mask_c, mask_t, cond if conditioned else None)
             ll = -CNPFLoss(reduction=None)(out, y, mask_t, train=False)
-            return ll, mismatch(out.p_yCc.loc[0, ..., 0], y[..., 0])
+            if not freq:
+                return ll, mismatch(out.p_yCc.loc[0, ..., 0], y[..., 0])
+
+            def recon(ap):
+                return polar_conj(ap[..., 0], ap[..., 1] * sigma)
+            return ll, mismatch_fd(recon(out.p_yCc.loc[0]), recon(y), psd=psd_t)
 
     scores = {}
     for model, score in (("jax", jax_score), ("port", port_score)):
@@ -141,7 +172,8 @@ def main() -> None:
             if model == "port" and draws not in ("jax", f"port_{args.seeds.split(',')[0]}"):
                 continue
             parts = [score(x[i:i + args.chunk], y[i:i + args.chunk], mask[i:i + args.chunk],
-                           cond[i:i + args.chunk]) for i in range(0, args.n, args.chunk)]
+                           cond[i:i + args.chunk], sigma[i:i + args.chunk])
+                     for i in range(0, args.n, args.chunk)]
             scores[model, draws] = [np.concatenate([np.asarray(p[k], np.float64) for p in parts])
                                     for k in range(2)]
             print(f"{model} on {draws}'s draws: {_stats(*scores[model, draws])}", flush=True)

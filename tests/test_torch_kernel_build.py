@@ -210,8 +210,10 @@ def bf16_plan(tmp_path_factory):
 
 
 # (M, C, H, L1, O) of the chip's K2-bf16/K3-bf16 cases: the decoder at the
-# scoring and training shapes, then K2's edge cases (chip_smoke.py, K2_CASES)
-_DECODER = [(65536, 128, 128, 3, 2), (8192, 128, 128, 3, 2)]
+# scoring and training shapes (one channel, and the frequency-domain runs'
+# two: O = 4), then K2's edge cases (chip_smoke.py, K2_CASES)
+_DECODER = [(65536, 128, 128, 3, 2), (8192, 128, 128, 3, 2), (65536, 128, 128, 3, 4),
+            (8192, 128, 128, 3, 4)]
 _K2_EDGES = [(4099, 37, 64, 2, 5), (1000, 128, 128, 0, 3), (1500, 200, 96, 1, 2),
              (3001, 200, 256, 2, 3), (3001, 200, 320, 2, 3), (2049, 128, 128, 1, 8),
              (2049, 128, 128, 1, 9), (20001, 64, 96, 2, 130), (20001, 96, 144, 2, 3)]

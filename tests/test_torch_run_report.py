@@ -14,9 +14,14 @@ RUN_1 = os.path.join(RESULTS, "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1
 
 
 def test_scored_runs_are_the_nineteen():
+    """The 19 time-domain runs and, since the frequency-domain data was
+    ported, the two frequency-domain runs that hold parameters."""
     runs = run_report.scored_runs(RESULTS)
-    assert len(runs) == 19 and runs == sorted(runs)
+    assert len(runs) == 21 and runs == sorted(runs)
     assert os.path.join(RESULTS, "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1") in runs
+    freq = [r for r in runs if "GW_freq_ap" in r]
+    assert freq == [os.path.join(RESULTS, "GW_freq_ap_cond_film_ctx64", "ConvCNP", "run_0"),
+                    os.path.join(RESULTS, "GW_freq_ap_ctx64", "ConvCNP", "run_1")]
 
 
 def test_flagship_bands_hold_the_record_and_repeat():
@@ -42,7 +47,7 @@ def test_history_at_takes_the_entry_and_its_window():
 def test_main_prints_a_table(cmd, tmp_path, capsys):
     if cmd == "bands":
         run_report.main(["bands", "--results", RESULTS])
-        n_rows = 19
+        n_rows = 21
     else:
         with open(tmp_path / "history.json", "w") as f:
             json.dump([{"step": s, "train_loss": -1.0} for s in range(50, 50_001, 50)], f)

@@ -1,6 +1,6 @@
 """Run directories and summaries as `experiments/reproduce_gw.py` names and
-writes them: `configs.run_tag` of every recorded time-domain ConvCNP run's
-`summary.json` is its directory's tag (the runs that hold only a summary
+writes them: `configs.run_tag` of every recorded GW ConvCNP run's
+`summary.json` (time-domain and frequency-domain) is its directory's tag (the runs that hold only a summary
 included), and `train_gw`'s flags, given as that script was given them,
 state the recorded configuration (`configs.train_config`) field for field.
 """
@@ -15,7 +15,7 @@ from npf_gwwaveform_tpu_torch import train_gw
 from npf_gwwaveform_tpu_torch.configs import gw_train_summary, run_tag, train_config
 
 RESULTS = os.path.join(os.path.dirname(__file__), "..", "results")
-RUNS = sorted(glob.glob(os.path.join(RESULTS, "GW_time*", "ConvCNP", "run_*")))
+RUNS = sorted(glob.glob(os.path.join(RESULTS, "GW_*", "ConvCNP", "run_*")))
 # summaries written before reproduce_gw.py recorded n_context: no flags state them
 FLAGGED = [r for r in RUNS if "n_context" in json.load(open(os.path.join(r, "summary.json")))]
 
@@ -30,9 +30,12 @@ def _tag(run_dir):
 
 
 def test_the_recorded_runs_are_all_there():
+    """22 time-domain runs (20 with n_context) and three frequency-domain
+    ones (`GW_freq_ap_ctx64/run_0` holds only its summary and scores)."""
     tags = {_tag(r) for r in RUNS}
-    assert len(RUNS) == 22 and len(FLAGGED) == 20
-    assert {"GW_time", "GW_time_cond", "GW_time_ctx64"} <= tags
+    assert len(RUNS) == 25 and len(FLAGGED) == 23
+    assert {"GW_time", "GW_time_cond", "GW_time_ctx64", "GW_freq_ap_cond_film_ctx64",
+            "GW_freq_ap_ctx64"} <= tags
 
 
 @pytest.mark.parametrize("run_dir", RUNS, ids=lambda r: f"{_tag(r)}/{os.path.basename(r)}")
@@ -43,7 +46,7 @@ def test_run_tag_names_every_recorded_run(run_dir):
 def _flags(summary):
     """The `reproduce_gw.py` flags of a recorded configuration, in the
     port's spelling (its defaults are the flagship's, so each is explicit)."""
-    flags = ["--n-context", str(summary["n_context"]),
+    flags = ["--mode", summary["mode"], "--n-context", str(summary["n_context"]),
              "--density", str(summary.get("density_induced") or 0)]
     if summary["conditioned"]:
         flags += ["--cond-mode", summary.get("cond_mode") or "add"]
@@ -82,9 +85,28 @@ def test_gw_train_summary_defaults_and_refusals():
         "n_context": 64}
     with pytest.raises(ValueError):
         gw_train_summary(cnn_arch="unet", cnn_dilations=[1, 1, 2, 4, 8])
-    for bad in (dict(mode="freq_ap"), dict(model="ConvLNP"), dict(banded=True),
-                dict(remat=True), dict(n_points=512)):
+    for bad in (dict(model="ConvLNP"), dict(banded=True), dict(remat=True), dict(n_points=512),
+                dict(mode="freq_ap", n_points=512)):
         with pytest.raises(NotImplementedError):
             gw_train_summary(**bad)
+    with pytest.raises(ValueError):  # JAX's choices are time and freq_ap
+        gw_train_summary(mode="freq")
     with pytest.raises(SystemExit):
         train_gw.main(["--device", "cpu", "--cnn-arch", "unet", "--cnn-dilations", "1,2,1,2,1"])
+
+
+def test_freq_ap_summaries_and_tags():
+    """`--mode freq_ap` with reproduce_gw.py's flags of the two recorded
+    frequency-domain configurations: their summary fields and tags."""
+    film = train_gw.summary_from_args(train_gw.parser().parse_args(
+        ["--mode", "freq_ap", "--cond-mode", "film", "--n-context", "64", "--density", "0"]))
+    assert film == {"model": "ConvCNP", "mode": "freq_ap", "conditioned": True,
+                    "cond_mode": "film", "n_context": 64}
+    assert run_tag(film) == "GW_freq_ap_cond_film_ctx64"
+    plain = gw_train_summary(mode="freq_ap", cond=False, n_context=64, density=None)
+    assert run_tag(plain) == "GW_freq_ap_ctx64"
+    assert run_tag(gw_train_summary(mode="freq_ap", cond_mode="add", n_context=32)) == (
+        "GW_freq_ap_cond_ctx32_d128")
+    assert train_gw.parser().parse_args([]).mode == "time"
+    with pytest.raises(SystemExit):
+        train_gw.parser().parse_args(["--mode", "freq"])

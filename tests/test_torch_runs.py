@@ -1,5 +1,7 @@
-"""Every time-domain GW ConvCNP run in `results/` that holds parameters,
-rebuilt by the port from its `summary.json` and loaded strictly, and one run
+"""Every GW ConvCNP run in `results/` that holds parameters (the 19
+time-domain runs and the two frequency-domain ones), rebuilt by the port
+from its `summary.json` and loaded strictly, each frequency-domain run
+scored on the CPU through `score`'s command line, and one run
 of each family the port gained (dilated CNN, additive conditioning, UnetCNN,
 the 2 s long-waveform runs with k=37 and with the UnetCNN), and the UnetCNN
 run whose rescoring sits furthest from its record (run_1), against the JAX
@@ -38,6 +40,7 @@ from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.data.gw import mismatch
 from npf_gwwaveform_tpu_torch.losses import CNPFLoss
 from npf_gwwaveform_tpu_torch.score import load_model, make_eval_batch, read_run_thetas, run_generator
+from npf_gwwaveform_tpu_torch.score import main as score_main
 from npf_gwwaveform_tpu_torch.training.checkpoint import (
     flax_from_params, load_run_params, write_msgpack,
 )
@@ -48,6 +51,9 @@ RESULTS = os.path.join(os.path.dirname(__file__), "..", "results")
 RUNS = sorted(os.path.relpath(os.path.dirname(p), RESULTS)
               for p in glob.glob(os.path.join(RESULTS, "GW_time*", "ConvCNP", "run_*",
                                               "params.msgpack")))
+FREQ_RUNS = sorted(os.path.relpath(os.path.dirname(p), RESULTS)
+                   for p in glob.glob(os.path.join(RESULTS, "GW_freq_ap*", "ConvCNP", "run_*",
+                                                   "params.msgpack")))
 PARITY_RUNS = [
     "GW_time_cond_film_ctx64_d128_dil1-1-2-4-8/ConvCNP/run_0",
     "GW_time_cond_ctx32/ConvCNP/run_0",
@@ -73,9 +79,11 @@ def _summary(run):
 
 def test_the_nineteen_runs():
     assert len(RUNS) == 19 and set(PARITY_RUNS) <= set(RUNS)
+    assert FREQ_RUNS == ["GW_freq_ap_cond_film_ctx64/ConvCNP/run_0",
+                         "GW_freq_ap_ctx64/ConvCNP/run_1"]
 
 
-@pytest.mark.parametrize("run", RUNS)
+@pytest.mark.parametrize("run", RUNS + FREQ_RUNS)
 def test_run_loads_strictly_and_round_trips(run, tmp_path):
     """`load_model` builds the run's architecture and loads it with
     strict=True; written back by the port, its two files are the run's own
@@ -164,3 +172,17 @@ def test_run_matches_jax_at_full_width(run):
     np.testing.assert_allclose(ll, ll_ref, atol=LL_ATOL_256 * n_points / 256)
     np.testing.assert_allclose(mm, mm_ref, atol=MISMATCH_ATOL, rtol=MISMATCH_RTOL)
     assert np.isfinite(ll).all()
+
+
+@pytest.mark.parametrize("run", FREQ_RUNS)
+def test_freq_run_scores_on_the_cpu(run, capsys):
+    """`python -m npf_gwwaveform_tpu_torch.score --device cpu --thetas-from-run
+    --run-dir RUN --n-test 8`: eight of the run's recorded thetas, one JSON
+    line of finite scores, the mismatch a fraction."""
+    res = score_main(["--device", "cpu", "--thetas-from-run", "--run-dir",
+                      os.path.join(RESULTS, run), "--n-test", "8"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == res and res["n"] == 8 and res["device"] == "cpu"
+    assert np.isfinite(res["mean_ll"]) and 0.0 <= res["median_mismatch"] <= 1.0
+    assert res["mismatch_zdraw_median"] == res["median_mismatch"]
+    assert load_model(os.path.join(RESULTS, run), "cpu").y_dim == 2

@@ -145,21 +145,25 @@ def test_score_run_on_cpu():
 
 
 def test_gw_model_from_summary_refuses_unported_configs():
-    """What the port still refuses: ConvLNP, frequency-domain targets (in
-    a model and in a training summary) and the UnetCNN with dilations (JAX
+    """What the port still refuses: ConvLNP, a data mode JAX lacks (in a
+    model and in a training summary) and the UnetCNN with dilations (JAX
     refuses it too). Every time-domain family builds in bfloat16 and
-    trains."""
+    trains, and frequency-domain targets (two channels) since their
+    port."""
     with pytest.raises(NotImplementedError):
         gw_model_from_summary({"model": "ConvLNP"})
     with pytest.raises(NotImplementedError):
-        gw_model_from_summary({"model": "ConvCNP", "mode": "freq_ap"})
+        gw_model_from_summary({"model": "ConvCNP", "mode": "freq"})
     with pytest.raises(ValueError):
         gw_model_from_summary({"model": "ConvCNP", "cnn_arch": "unet",
                                "cnn_dilations": [1, 1, 2, 4, 8]})
-    with pytest.raises(NotImplementedError):
-        gw_train_summary(mode="freq_ap")
+    with pytest.raises(ValueError):
+        gw_train_summary(mode="freq")
     with pytest.raises(NotImplementedError):
         gw_train_summary(model="ConvLNP")
+    freq = gw_model_from_summary({"model": "ConvCNP", "mode": "freq_ap"})
+    assert freq.y_dim == 2 and freq.decoder.module.out.out_features == 4
+    assert gw_train_summary(mode="freq_ap")["mode"] == "freq_ap"
     assert gw_model_from_summary({"model": "ConvCNP", "cnn_arch": "unet"},
                                  dtype=torch.bfloat16).dtype == torch.bfloat16
     assert gw_train_summary(cnn_arch="unet")["cnn_arch"] == "unet"

@@ -1,8 +1,9 @@
-"""Training every time-domain ConvCNP family against the JAX package: one
+"""Training every ConvCNP family against the JAX package: one
 train step of a small model of each (additive conditioning, per-block
-dilations, k=37, the UnetCNN, no conditioning, and a short stand-in for the
+dilations, k=37, the UnetCNN, no conditioning, a short stand-in for the
 2 s long waveforms with their stride of 1, their splitter and
-`reproduce_gw.py`'s long-run learning rate and clip) through the port's
+`reproduce_gw.py`'s long-run learning rate and clip, and the
+frequency-domain data, two channels, with FiLM and with no conditioning) through the port's
 `Trainer` against JAX's `Trainer._loss_fn` on the same batch from the same
 parameters; optax's clip where it does not bind; and the 2 s data at its
 real size.
@@ -51,7 +52,8 @@ NORM_RTOL = 1e-4
 WAVE_ATOL = 5e-3  # tests/test_torch_gw.py's waveform bar, of the peak
 
 # name: (JAX CNN factory, the port's CNN arguments, cond_mode or None,
-# (duration, n_points), n_context, density, lr, clip)
+# (duration, n_points), n_context, density, lr, clip[, mode]); the mode is
+# "time" unless given
 FAMILIES = {
     "additive": (_cnn_factory(2, kernel_size=5), dict(cnn_n_blocks=2, cnn_kernel_size=5),
                  "add", (1.0, 64), 16, 16, 1e-3, None),
@@ -70,6 +72,11 @@ FAMILIES = {
     # the long runs' lr 3e-4 and clip 1.0 (which binds on this step)
     "long stand-in": (_cnn_factory(2, kernel_size=37), dict(cnn_n_blocks=2, cnn_kernel_size=37),
                       "film", (0.125, 128), 64, 32, 3e-4, 1.0),
+    # amplitude and standardised phase on 64 frequencies (y_dim 2)
+    "freq film": (_cnn_factory(2, kernel_size=5), dict(cnn_n_blocks=2, cnn_kernel_size=5),
+                  "film", (1.0, 64), 16, 16, 1e-3, None, "freq_ap"),
+    "freq unconditioned": (_cnn_factory(2, kernel_size=5), dict(cnn_n_blocks=2, cnn_kernel_size=5),
+                           None, (1.0, 64), 16, 16, 1e-3, None, "freq_ap"),
 }
 
 
@@ -77,7 +84,7 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, flax.core.unfreeze(tree))
 
 
-def _data(duration, n_points, n_context, seed):
+def _data(duration, n_points, n_context, seed, mode="time"):
     """(x, y, cond) numpy from the port's generator and the training
     splitter's context mask (one count U{0..n_context} for the batch),
     each drawn from a seed; a second batch element gets an empty context."""
@@ -86,7 +93,7 @@ def _data(duration, n_points, n_context, seed):
     theta = space.sample(3, g)
     gen = GWWaveformGenerator(duration=duration, sample_rate=1024.0)
     assert gen.n_time // n_points == (1 if duration != 1.0 else 1024 // n_points)
-    x, y, cond = make_eval_batch(theta, gen, space, n_points)
+    x, y, cond = make_eval_batch(theta, gen, space, n_points, mode)
     mask_c = GetRandomIndcs(a=0.0, b=n_context)(g, 3, n_points)
     mask_c[1] = False
     assert mask_c.sum() > 0
@@ -113,11 +120,14 @@ def _compare_grads(grads, ref_tree):
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_family_train_step_matches_jax(family):
-    factory, cnn_kw, cond_mode, (duration, n_points), n_context, density, lr, clip = (
+    factory, cnn_kw, cond_mode, (duration, n_points), n_context, density, lr, clip, *mode = (
         FAMILIES[family])
-    x, y, cond, mask_c, mask_t = _data(duration, n_points, n_context, seed=7)
+    mode = mode[0] if mode else "time"
+    y_dim = 1 if mode == "time" else 2
+    x, y, cond, mask_c, mask_t = _data(duration, n_points, n_context, seed=7, mode=mode)
+    assert y.shape[-1] == y_dim
     cond_dim = 0 if cond_mode is None else 4
-    jm = JaxConvCNP(y_dim=1, x_dim=1, r_dim=16, density_induced=density, CNNFactory=factory,
+    jm = JaxConvCNP(y_dim=y_dim, x_dim=1, r_dim=16, density_induced=density, CNNFactory=factory,
                     cond_dim=cond_dim, cond_mode=cond_mode or "film")
     kw = dict(mask_cntxt=mask_c, mask_trgt=mask_t, train=True,
               **({"condition": cond} if cond_dim else {}))
@@ -132,7 +142,7 @@ def test_family_train_step_matches_jax(family):
         cond if cond_dim else None, jax.random.PRNGKey(1), jax.random.PRNGKey(2))
     ref_grads = _np_tree(ref_grads)
 
-    tm = ConvCNP(r_dim=16, density_induced=density, cond_dim=cond_dim,
+    tm = ConvCNP(y_dim=y_dim, r_dim=16, density_induced=density, cond_dim=cond_dim,
                  cond_mode=cond_mode or "film", **cnn_kw)
     tm.load_state_dict(params_from_flax(variables["params"],
                                         {"batch_stats": variables["batch_stats"]}))
