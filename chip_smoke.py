@@ -16,8 +16,13 @@ Phases, each announced with the seconds elapsed:
      and the long train step's (the same at B = 32), at the
      frequency-domain paths' (C = 2: U{0..64} of 256 context points onto
      the 192-point grid, and the grid onto 256 targets at C = 128, B = 256
-     and 32, each frequency-domain run's length scales), and at three other
-     cases: random masks at the grid->targets shape, K = 5000 keys, and the
+     and 32, each frequency-domain run's length scales), at the ConvLNP
+     paths' (phase 16: U{0..64} of 256 context points onto the 192-point
+     grid at B = 256 and 32; the grid onto 256 targets with the z draws
+     folded into the batch, B = 32 * 256 = 8,192 for a scoring batch and
+     16 * 32 = 512 for an NPML train step, C = 128, the latlbF `run_1`'s
+     length scales; the ELBO run's encoding of all 256 targets onto the
+     grid at B = 256 and 32), and at three other cases: random masks at the grid->targets shape, K = 5000 keys, and the
      width C = 512 (K = 2048, Q = 1536); two launches
      must give the same bits;
   4. K2 (fused MLP chain forward) against its plain version at the scoring
@@ -128,7 +133,26 @@ Phases, each announced with the seconds elapsed:
      2 s ones from seed 0), each draw printing its median loss over the first
      and the last 50 steps, of which one must fall `FAMILY_FALL` nats; one
      step of seed 0's trained model on the kernel path against the plain
-     path; the path's launches from a traced replay of seed 0's graph.
+     path; the path's launches from a traced replay of seed 0's graph. The
+     seeds after the first are fallbacks: a path trains the next seed only
+     while no draw has met its bar;
+ 16. the latent ConvNP family: the four ConvLNP runs in `results/` (NPML,
+     the ELBO run, the unbounded q(z) scale's `run_0` and `run_1`), each
+     scored with `score_run` on its own 2048 recorded thetas at 32 z draws
+     a waveform (K1's grid->targets launch at B = 8,192; the ELBO run's
+     eval forward encodes its targets too, K1 three times a batch and K2,
+     K3 never), graphed as in phase 12 and held to eager scoring, in float32
+     within the JAX package's own float32 bands of the same thetas
+     (`tests/jax_bf16_family_gaps.json`: the records were not made with its
+     float32 arithmetic, `tests/jax_score_offsets.py`) and in bf16 within
+     the bar of JAX's own bf16 gap; one batch of the NPML and of the ELBO
+     path on the kernel path against the plain path, the same z draws; and
+     (in phase 14's loop) the three training configurations, NPML, ELBO
+     and the unbounded scale, in float32 and bf16, each checked as the
+     other families (graphed against eager bit for bit, a traced replay
+     holding K1 two or three times and K2/K3 never, the loss falling by
+     its bar and its last 50 steps' median at or below its level over
+     1,000 steps, one kernel-path step against the plain path).
 It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -196,6 +220,16 @@ FREQ_FILM = os.path.join(RESULTS, "GW_freq_ap_cond_film_ctx64", "ConvCNP", "run_
 FREQ_UNCOND = os.path.join(RESULTS, "GW_freq_ap_ctx64", "ConvCNP", "run_1")
 FREQ_RUNS = {FREQ_FILM: "freq film", FREQ_UNCOND: "freq"}
 assert set(FREQ_RUNS) <= set(OTHER_RUNS)
+# the latent ConvNP runs (phase 16): K1's grid->targets launch at n_z * B
+# (32 draws a scored waveform, 16 a trained one), the ELBO run's third K1
+# launch on its targets, no K2 or K3 (a linear decoder)
+LATENT_NPML = os.path.join(RESULTS, "GW_time_cond_film_ctx64", "ConvLNP", "run_0")
+LATENT_ELBO = os.path.join(RESULTS, "GW_time_cond_film_ctx64_elbo", "ConvLNP", "run_0")
+LATENT_LATLBF = os.path.join(RESULTS, "GW_time_cond_film_ctx64_latlbF", "ConvLNP", "run_0")
+LATENT_LATLBF1 = os.path.join(RESULTS, "GW_time_cond_film_ctx64_latlbF", "ConvLNP", "run_1")
+LATENT_RUNS = {LATENT_NPML: "latent npml", LATENT_ELBO: "latent elbo",
+               LATENT_LATLBF: "latent latlbF", LATENT_LATLBF1: "latent latlbF run_1"}
+assert sorted(LATENT_RUNS) == scored_runs(RESULTS, "ConvLNP")
 # decile checkpoints: six chunks of 50 steps, checkpoints after chunks 1-5;
 # then a continuation of two chunks from the last one
 RESUME_STEPS, RESUMED_STEPS = 300, 100
@@ -333,13 +367,38 @@ FAMILY_RUNS = (
     # the frequency-domain configurations (phase 15)
     ("freq film", FREQ_FILM, 1000, FAMILY_SEEDS),
     ("freq", FREQ_UNCOND, 1000, FAMILY_SEEDS),
+    # the latent configurations (phase 16)
+    ("latent npml", LATENT_NPML, 1000, FAMILY_SEEDS),
+    ("latent elbo", LATENT_ELBO, 1000, FAMILY_SEEDS),
+    ("latent latlbF", LATENT_LATLBF, 1000, FAMILY_SEEDS),
 )
 FAMILY_CLIP = 1.0  # the long runs' grad_clip_norm
 FAMILY_FALL = {"additive": 150.0, "dilated": 250.0, "k37": 300.0, "unet": 300.0,
-               "long k37": 2000.0, "long unet": 2000.0, "freq film": 500.0, "freq": 300.0}
+               "long k37": 2000.0, "long unet": 2000.0, "freq film": 500.0, "freq": 300.0,
+               "latent npml": 300.0, "latent elbo": 300.0, "latent latlbF": 300.0}
+# the latent paths' last 50 steps' median loss must also lie at or below a
+# level, from the JAX runs' histories (50-step means: NPML -181.8 at step
+# 100 and -373.0 at 1,000; ELBO -115.8 and -141.4; the unbounded scale
+# -232.7 at 100, -269.1 at 500 and -222.6 at 1,000, not monotone): their
+# first steps start from losses of 1e5-1e6 nats, so a fall alone says little
+# (PERF.md, section 6, written before the first call)
+FAMILY_LEVEL = {"latent npml": -150.0, "latent elbo": -100.0, "latent latlbF": -100.0}
 TRAIN_CALL, TRAIN16_CALL = (2, 1, 1, 0, 0), (2, 0, 0, 1, 1)
 
 _T0 = time.perf_counter()
+
+
+def path_call(summary: dict, bf16: bool, train: bool) -> tuple:
+    """The launches (K1, K2, K3, K2-bf16, K3-bf16) one call of a path makes:
+    a train step (`train`) or a scoring batch of the configuration
+    `summary` in bf16 or float32. A ConvLNP path launches K1 only (its
+    decoder is linear), twice, or three times where the ELBO encodes the
+    targets (in training and, since its eval forward sees them, in scoring)."""
+    if summary["model"] == "ConvLNP":
+        return (3 if summary.get("train_loss_objective") == "elbo" else 2, 0, 0, 0, 0)
+    if train:
+        return TRAIN16_CALL if bf16 else TRAIN_CALL
+    return SCORE16_CALL if bf16 else SCORE_CALL
 
 
 def phase(name: str) -> None:
@@ -633,11 +692,16 @@ def _bn_cancelled(name):
 def _step_grad_errs(grads, ref):
     """({parameter: max |g - ref| / max |ref|} but the BatchNorm-cancelled
     biases, {cancelled bias: the larger of its two gradients' max magnitudes
-    over its block's conv1.pointwise weight gradient's})."""
+    over its block's conv1.pointwise weight gradient's}). A block whose
+    weight gradient is exactly zero on the reference path holds its biases
+    to zero too: 0 where both are zero, else far past any bar. (After
+    1,000 ELBO steps nothing before the latent encoder gets a gradient: the
+    recorded ELBO run's latent encoder has all its hidden ReLUs off, so
+    q(z|C) = q(z|C,T) no longer depends on the data.)"""
     errs = _grad_errs((n, grads[n], ref[n]) for n in ref if not _bn_cancelled(n))
     zero = {}
     for n in filter(_bn_cancelled, ref):
-        scale = ref[n.rsplit(".", 2)[0] + ".pointwise.weight"].abs().max()
+        scale = ref[n.rsplit(".", 2)[0] + ".pointwise.weight"].abs().max().clamp_min(1e-30)
         zero[n] = (max(grads[n].abs().max(), ref[n].abs().max()) / scale).item()
     return errs, zero
 
@@ -814,7 +878,7 @@ def check_graph_train(summary, dtype=None) -> dict:
     tag = " (bf16)" if bf16 else ""
     loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL) if bf16
                             else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
-    expected = TRAIN16_CALL if bf16 else TRAIN_CALL
+    expected = path_call(summary, bf16, train=True)
     space, wave = GWParameterSpace(), run_generator(summary)
     n_points, conditioned = summary.get("n_points", 256), bool(summary["conditioned"])
     mode = summary.get("mode", "time")
@@ -936,7 +1000,9 @@ def check_family(name, run_dir, dtype, steps, seeds, smi) -> dict:
     the first and the last 50 steps; at least one draw must fall by
     `FAMILY_FALL[name]` nats between the two; one step of seed 0's trained
     model on the kernel path against the plain path; the path's launches
-    from a traced replay of seed 0's graph. -> the path's numbers."""
+    from a traced replay of seed 0's graph. The seeds after the first are
+    fallbacks: the next one trains only while no draw has met the bar (and,
+    on a latent path, `FAMILY_LEVEL`). -> the path's numbers."""
     bf16 = dtype is not None
     label = f"{name}{' (bf16)' if bf16 else ''}"
     with open(os.path.join(run_dir, "summary.json")) as f:
@@ -958,26 +1024,33 @@ def check_family(name, run_dir, dtype, steps, seeds, smi) -> dict:
         print(f"{label}, seed {seed}: {steps} graphed steps in {seconds:.2f}s, {graph.replays} "
               "replays; 50-step mean losses: "
               + ", ".join(f"{h['train_loss']:.1f}" for h in history))
+        level = FAMILY_LEVEL.get(name, float("inf"))
         print(f"{label}, seed {seed}: median loss over the first 50 steps {early:.2f}, over the "
-              f"last 50 {late:.2f} (fell {early - late:.2f} nats, bar {FAMILY_FALL[name]:.0f}); "
+              f"last 50 {late:.2f} (fell {early - late:.2f} nats, bar {FAMILY_FALL[name]:.0f}"
+              + (f"; level {level:.0f}" if name in FAMILY_LEVEL else "") + "); "
               f"graphed train step {step_ms:.3f} ms (median of {steps}, host clock, "
               f"synchronised), eager {graph_train['eager_step_ms']:.3f} ms; {smi}")
         if graph.replays != steps or not np.isfinite(losses).all():
             raise AssertionError(f"{label}, seed {seed}: {graph.replays} replays, finite "
                                  f"{np.isfinite(losses).all()}")
-        draws.append(dict(seed=seed, early=early, late=late, step_ms=step_ms))
+        met = early - late >= FAMILY_FALL[name] and late <= level
+        draws.append(dict(seed=seed, early=early, late=late, step_ms=step_ms, met=met))
         if seed == seeds[0]:
             first = (trainer, counted, graph)
         else:
             del trainer, graph
             release()
-    if not any(d["early"] - d["late"] >= FAMILY_FALL[name] for d in draws):
-        raise AssertionError(f"{label}: the loss fell by {FAMILY_FALL[name]} nats in no draw")
+        if met:
+            break
+    if not any(d["met"] for d in draws):
+        raise AssertionError(f"{label}: the loss fell by {FAMILY_FALL[name]} nats"
+                             + (f" to {FAMILY_LEVEL[name]}" if name in FAMILY_LEVEL else "")
+                             + " in no draw")
     trainer, counted, graph = first
     check_train_step(trainer.model, summary, torch.Generator(device="cuda").manual_seed(4), dtype,
                      term_scale=True)
     path = path_launches(f"{label} training", counted, graph, WARMUP_CALLS + 1,
-                         TRAIN16_CALL if bf16 else TRAIN_CALL)
+                         path_call(summary, bf16, train=True))
     return dict(path=path, step_ms=draws[0]["step_ms"], eager_step_ms=graph_train["eager_step_ms"],
                 draws=draws, norms=graph_train["norms"], clip=summary.get("grad_clip_norm"))
 
@@ -1096,17 +1169,24 @@ def check_run_scores(runs, smi) -> dict:
     package's own float32 scoring of the same thetas on the CPU (the
     json's `f32_bands`, by the same rule): its records lie between the JAX
     package's float32 and bf16 scores (PERF.md, section 6), and its
-    record's bands are printed beside. -> {"long k37", "long unet", "freq
-    film", "freq" and their " bf16": `path_launches`}."""
+    record's bands are printed beside. A ConvLNP run (phase 16) is held to
+    the JAX package's own float32 bands as well, its graphed scores to
+    eager ones, and prints its per-draw mismatch beside the record's. ->
+    {"long k37", "long unet", "freq film", "freq", the `LATENT_RUNS` labels
+    and their " bf16": `path_launches`}."""
     misses, paths = [], {}
     for run_dir in runs:
         name = os.path.relpath(run_dir, RESULTS)
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            summary = json.load(f)
         rec_ll, rec_mm = recorded_scores(run_dir)
         rec_bands = score_bands(run_dir)
         jax_gap = BF16_GAPS[name]
-        bands = jax_gap["f32_bands"] if run_dir in FREQ_RUNS else rec_bands
+        own = run_dir in FREQ_RUNS or run_dir in LATENT_RUNS  # JAX's own float32 bands
+        bands = jax_gap["f32_bands"] if own else rec_bands
         outs = {}
-        for dtype, call in ((None, SCORE_CALL), (BF16, SCORE16_CALL)):
+        for dtype in (None, BF16):
+            call = path_call(summary, dtype is not None, train=False)
             reset_counts()
             with graph_every_run():
                 out = score_run(run_dir, N_TEST, thetas_from=run_dir, device="cuda", dtype=dtype)
@@ -1122,11 +1202,12 @@ def check_run_scores(runs, smi) -> dict:
                     and np.isfinite(out["mismatch"]).all()):
                 raise AssertionError(f"{name}: non-finite or missing per-waveform results")
             outs[dtype] = out
-            kind = {LONG_K37: "long k37", LONG_UNET: "long unet", **FREQ_RUNS}.get(run_dir)
+            kind = {LONG_K37: "long k37", LONG_UNET: "long unet", **FREQ_RUNS,
+                    **LATENT_RUNS}.get(run_dir)
             if kind is not None:
                 kind += " bf16" if dtype is not None else ""
                 paths[kind] = path_launches(f"{kind} scoring", counted, graph, 2, call)
-            if run_dir in FREQ_RUNS:
+            if own:
                 reset_counts()
                 eager = eager_scores(N_TEST, dtype, run_dir=run_dir)
                 if counts() != tuple(N_TEST // 256 * c for c in call):
@@ -1149,6 +1230,12 @@ def check_run_scores(runs, smi) -> dict:
                  f" (JAX's float32 rescoring's; the record's [{r0:.2f}, {r1:.2f}] and "
                  f"[{q0:.5f}, {q1:.5f}]: inside {in_rec})")
               + f"; {out['seconds']:.2f}s")
+        if run_dir in LATENT_RUNS:
+            print(f"{name}: per-draw median mismatch {out['mismatch_zdraw_median']:.5f} (recorded "
+                  f"{summary['mismatch_zdraw_median']:.5f}; the JAX package's own float32 mean "
+                  f"LL and median mismatch over the same thetas "
+                  f"{jax_gap['f32_all']['mean_ll']:.2f} and "
+                  f"{jax_gap['f32_all']['median_mismatch']:.5f})")
         d_ll = out16["ll"] - out["ll"]
         tol = max(BF16_GAP_TOL, BF16_GAP_SES * jax_gap["d_ll_std"] / jax_gap["n"] ** 0.5)
         near = abs(d_ll.mean() - jax_gap["d_mean_ll"]) <= tol
@@ -1168,6 +1255,44 @@ def check_run_scores(runs, smi) -> dict:
     if misses:
         raise AssertionError(f"outside their bands or bars: {', '.join(misses)}")
     return paths
+
+
+def check_latent_batch(run_dir, smi) -> dict:
+    """Phase 16: one 256-waveform batch of a ConvLNP run on its first
+    recorded thetas, 32 z draws a waveform, on the kernel path against the
+    plain path (`use_kernels=False`), the split and the draws from
+    generators seeded alike: loc and scale within `PATH_TOL`; each path's
+    batch timed on the host clock (median of 3, synchronised)."""
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    wave, space = run_generator(summary), GWParameterSpace()
+    splitter = eval_splitter(summary["n_context"])
+    theta = torch.from_numpy(read_run_thetas(run_dir)[:256]).cuda()
+    outs, ms = {}, {}
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for label, use_kernels in (("kernel", True), ("plain", False)):
+            model = load_model(run_dir, "cuda", use_kernels=use_kernels)
+            t = []
+            for _ in range(4):
+                g = torch.Generator(device="cuda").manual_seed(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ll, _, _, o = score_batch(model, splitter, g, theta, wave, space)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter() - t0)
+            outs[label] = (o.p_yCc.loc.clone(), o.p_yCc.scale.clone(), ll.clone())
+            ms[label] = 1e3 * float(np.median(t[1:]))
+            del model, o
+            release()
+    loc_err, scale_err, ll_err = ((a - b).abs().max().item()
+                                  for a, b in zip(outs["kernel"], outs["plain"]))
+    print(f"{os.path.relpath(run_dir, RESULTS)}: one batch of 256 x {outs['kernel'][0].shape[0]} "
+          f"draws, kernel vs plain path: loc {loc_err:.3e}, scale {scale_err:.3e}, LL "
+          f"{ll_err:.3e}; eager batch {ms['kernel']:.3f} ms (kernel path), {ms['plain']:.3f} ms "
+          f"(plain path), host clock; {smi}")
+    if not (loc_err <= PATH_TOL and scale_err <= PATH_TOL):
+        raise AssertionError(f"{run_dir}: the kernel path disagrees with the plain path")
+    return dict(loc_err=loc_err, scale_err=scale_err, ll_err=ll_err, **ms)
 
 
 def long_batch_ms(run_dir, smi) -> dict:
@@ -1340,6 +1465,15 @@ def main() -> int:
                                    for sc in ("cntxt_to_induced", "induced_to_trgt"))
     with open(os.path.join(FREQ_FILM, "summary.json")) as f:
         freq_ctx = json.load(f)["n_context"]
+    # the latent paths' length scales: the unbounded scale's run_1 for the
+    # context and the grid->targets SetConvs, the ELBO run's context SetConv
+    # for its encoding of the targets
+    lat_model, elbo_model = load_model(LATENT_LATLBF1, "cuda"), load_model(LATENT_ELBO, "cuda")
+    sig_ctx_lat = lat_model.cntxt_to_induced.rbf.sigma().item()
+    sig_trgt_lat = lat_model.induced_to_trgt.rbf.sigma().item()
+    sig_ctx_elbo = elbo_model.cntxt_to_induced.rbf.sigma().item()
+    lat_ctx, n_z_score, n_z_train = 64, lat_model.n_z_samples_test, lat_model.n_z_samples_train
+    del lat_model, elbo_model
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     phase("K1 setconv_fwd vs plain")
@@ -1373,6 +1507,21 @@ def main() -> int:
         *((f"grid->trgt {FREQ_RUNS[run]}{tag}",
            k1_inputs(B, 192, 256, 128, sig_trgt_freq[run], gen, max_real="all"))
           for run in FREQ_RUNS for B, tag in ((256, ""), (TRAIN_BATCH, " train"))),
+        # the latent paths: U{0..64} of 256 context points onto the 192-point
+        # grid; the grid onto the 256 targets at n_z * B (32 draws of a
+        # scoring batch of 256, 16 of a train step's 32); the ELBO path's
+        # encoding of all 256 targets onto the grid
+        ("ctx->grid latent", k1_inputs(256, 256, 192, 1, sig_ctx_lat, gen, [0, 7],
+                                       max_real=lat_ctx)),
+        ("ctx->grid latent train", k1_inputs(TRAIN_BATCH, 256, 192, 1, sig_ctx_lat, gen, [0],
+                                             max_real=lat_ctx)),
+        ("grid->trgt latent", k1_inputs(n_z_score * 256, 192, 256, 128, sig_trgt_lat, gen,
+                                        max_real="all")),
+        ("grid->trgt latent train", k1_inputs(n_z_train * TRAIN_BATCH, 192, 256, 128,
+                                              sig_trgt_lat, gen, max_real="all")),
+        ("trgt->grid elbo", k1_inputs(256, 256, 192, 1, sig_ctx_elbo, gen, max_real="all")),
+        ("trgt->grid elbo train", k1_inputs(TRAIN_BATCH, 256, 192, 1, sig_ctx_elbo, gen,
+                                            max_real="all")),
         # off the paths: random masks with an empty row, many keys, the
         # long-waveform runs' width (ROADMAP queue 1, item 3)
         ("grid->trgt random mask", k1_inputs(256, 384, 256, 128, sig_trgt, gen, [3])),
@@ -1735,6 +1884,15 @@ def main() -> int:
           "from the last checkpoint")
     check_resume()
 
+    release()
+    phase("the four ConvLNP runs: each scored on its own 2048 recorded thetas at 32 z draws a "
+          "waveform through K1 (grid->targets at B = 8,192), held to the JAX package's float32 "
+          "bands, then in bf16, held to JAX's bf16 gap; graphed against eager scoring")
+    latent_paths = check_run_scores(tuple(LATENT_RUNS), smi)
+    phase("the latent paths: one batch of the NPML and of the ELBO run, kernel path vs plain path")
+    latent_batch = {LATENT_RUNS[r]: check_latent_batch(r, smi) for r in (LATENT_NPML, LATENT_ELBO)}
+    release()
+
     families = {}
     for name, run_dir, steps, seeds in FAMILY_RUNS:
         for dtype in (None, BF16):
@@ -1758,9 +1916,11 @@ def main() -> int:
              "score_bf16_long_unet": long_paths["long unet bf16"],
              **{f"score{'_bf16' if k.endswith(' bf16') else ''}_"
                 f"{k.removesuffix(' bf16').replace(' ', '_')}": p
-                for k, p in long_paths.items() if k.startswith("freq")},
+                for k, p in {**long_paths, **latent_paths}.items()
+                if k.startswith(("freq", "latent"))},
              **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in families.items()}}
     print(f"long-waveform batch times (host clock; {smi}): " + json.dumps(long_ms))
+    print(f"latent batches, kernel vs plain path (host clock; {smi}): " + json.dumps(latent_batch))
 
     def launches_by_path(i):
         """Each path's launches of kernel i on the card (`path_launches`)."""

@@ -1,4 +1,4 @@
 from .base import NeuralProcessFamily
-from .convnp import ConvCNP
+from .convnp import ConvCNP, ConvLNP
 
-__all__ = ["ConvCNP", "NeuralProcessFamily"]
+__all__ = ["ConvCNP", "ConvLNP", "NeuralProcessFamily"]

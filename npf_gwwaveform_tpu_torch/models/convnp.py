@@ -1,5 +1,5 @@
-"""Convolutional CNP; the counterpart of
-`npf_gwwaveform_tpu/models/convnp.py::ConvCNP`.
+"""Convolutional CNP and LNP; the counterparts of
+`npf_gwwaveform_tpu/models/convnp.py::ConvCNP` and `::ConvLNP`.
 
 SetConv context -> induced grid `linspace(-1.5, 1.5, 3*density)`, FiLM
 conditioning on the grid (`cond_mode="film"`), the grid CNN (the flat `CNN`,
@@ -15,6 +15,17 @@ statistics; the deterministic path has n_z = 1 in both modes. `dtype`
 (bfloat16, or None for float32) is the compute dtype of every module but
 the SetConvs' interpolation, the grid and the positional features, which
 stay float32 as in JAX.
+
+`ConvLNP` puts a latent on every grid point: q(z|C) from the grid CNN's
+output through the latent encoder MLP, n_z draws folded into the batch
+(so that the post-sampling CNN, a second grid CNN of the same build, and the
+grid->targets SetConv, K1 at n_z * B, run on [n_z * B, ...]), with
+`is_global` the second half of the channels pooled over the grid after the
+post-sampling CNN, and a linear decoder that discards x (flax's `Dense`:
+not the MLP chain). With `encoded_path="both"` one global latent from the
+pooled grid is merged with R on every grid point (`merge_r_z`) before the
+post-sampling CNN. In train mode its BatchNorm takes statistics over
+n_z * B * n_induced positions.
 """
 
 from __future__ import annotations
@@ -26,10 +37,12 @@ from torch import nn
 
 from ..ops.cnn import CNN, UnetCNN
 from ..ops.encoders import DiscardIthArg, SinusoidalEncodings
-from ..ops.mlp import MLP, dense
+from ..ops.mlp import MLP, Dense, dense
 from ..ops.setconv import SetConv
 from ..utils import init as winit
-from ..utils.helpers import linspace
+from ..utils.helpers import (
+    collapse_z_samples_batch, linspace, pool_and_replicate_middle, replicate_z_samples,
+)
 from .base import NeuralProcessFamily
 
 
@@ -41,9 +54,9 @@ class ConvCNP(NeuralProcessFamily):
                  cnn_arch: str = "cnn", cnn_dilations: Optional[Sequence[int]] = None,
                  cond_dim: int = 0, cond_mode: str = "film", cond_pos_feats: int = 64,
                  min_sigma_pred: float = 0.01, use_kernels: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, **latent):
         super().__init__(x_dim, y_dim, r_dim, min_sigma_pred, cond_dim, use_kernels, dtype,
-                         cond_mode)
+                         cond_mode, **latent)
         if x_dim != 1:
             raise ValueError("ConvCNP's induced grid is 1-D")
         if cond_mode not in ("film", "add"):
@@ -55,24 +68,33 @@ class ConvCNP(NeuralProcessFamily):
         lo, hi = induced_range
         self.n_induced = int(density_induced * (hi - lo))
         self.cntxt_to_induced = SetConv(y_dim, r_dim, use_kernel=use_kernels, dtype=dtype)
-        if cnn_arch == "unet":  # an odd block count, as configs._unet_factory makes it
-            n_blocks = cnn_n_blocks if cnn_n_blocks % 2 == 1 else cnn_n_blocks + 1
-            self.induced_to_induced = UnetCNN(r_dim, n_blocks, cnn_kernel_size, cnn_norm,
-                                              cnn_n_conv_layers, cnn_norm_eps,
-                                              max_nchannels=2 * r_dim, dtype=dtype)
-        elif cnn_arch == "cnn":
-            self.induced_to_induced = CNN(r_dim, cnn_n_blocks, cnn_kernel_size, cnn_norm,
-                                          cnn_n_conv_layers, cnn_norm_eps, dtype, cnn_dilations)
-        else:
+        if cnn_arch not in ("cnn", "unet"):
             raise ValueError(f"cnn_arch={cnn_arch!r}: 'cnn' or 'unet'")
+        self._cnn_args = (cnn_arch, cnn_n_blocks, cnn_kernel_size, cnn_norm, cnn_n_conv_layers,
+                          cnn_norm_eps, cnn_dilations)
+        self.induced_to_induced = self._make_cnn()
         self.induced_to_trgt = SetConv(r_dim, r_dim, use_kernel=use_kernels, dtype=dtype)
-        self.decoder = DiscardIthArg(self._sub_decoder(2 * y_dim), i=0)
+        self.decoder = DiscardIthArg(self._make_decoder(), i=0)
         if cond_dim > 0 and cond_mode == "film":
             self.cond_gamma = nn.Linear(r_dim, r_dim)
             self.cond_pos_enc = SinusoidalEncodings(cond_pos_feats)
             self.cond_field = MLP(cond_pos_feats + r_dim, r_dim, n_hidden_layers=2,
                                   hidden_size=r_dim, dtype=dtype)
             self.init_params()
+
+    def _make_decoder(self) -> nn.Module:
+        """The decoder behind `DiscardIthArg`: the MLP chain (K2 and K3)."""
+        return self._sub_decoder(2 * self.y_dim)
+
+    def _make_cnn(self) -> nn.Module:
+        """The grid CNN: the flat `CNN`, or the `UnetCNN` with an odd block
+        count, as configs._unet_factory makes it."""
+        arch, n_blocks, k, norm, n_conv, eps, dilations = self._cnn_args
+        if arch == "unet":
+            n_blocks = n_blocks if n_blocks % 2 == 1 else n_blocks + 1
+            return UnetCNN(self.r_dim, n_blocks, k, norm, n_conv, eps,
+                           max_nchannels=2 * self.r_dim, dtype=self.dtype)
+        return CNN(self.r_dim, n_blocks, k, norm, n_conv, eps, self.dtype, dilations)
 
     def init_params(self, generator=None) -> None:
         # flax's default Dense init, as the JAX model's cond_gamma
@@ -103,6 +125,68 @@ class ConvCNP(NeuralProcessFamily):
             R_induced = self._film(R_induced, cond_emb)
         return self.induced_to_induced(R_induced)
 
-    def trgt_dependent_representation(self, x_c, R, x_t, mask_cntxt):
+    def trgt_dependent_representation(self, x_c, z_samples, R, x_t, mask_cntxt):
         x_induced = self._get_x_induced(x_t.shape[0], x_t.device)
         return self.induced_to_trgt(x_induced, x_t, R)[None]
+
+
+class ConvLNP(ConvCNP):
+    """The latent ConvNP: `ConvCNP`'s modules, a latent per grid point
+    (`encoded_path="latent"`, z_dim = r_dim unless given; `reshaper_z` maps
+    z_dim to r_dim otherwise) or one global latent (`"both"`, merged with R
+    by `r_z_merger`), the post-sampling CNN and a linear decoder."""
+
+    def __init__(self, *args, encoded_path: str = "latent", is_global: bool = False, **kwargs):
+        if encoded_path not in ("latent", "both"):
+            raise ValueError(f"ConvLNP takes encoded_path 'latent' or 'both', not {encoded_path!r}")
+        super().__init__(*args, encoded_path=encoded_path, **kwargs)
+        self.is_global = is_global
+        self.induced_to_induced_post_sampling = self._make_cnn()
+        lecun = winit.switchable(winit.lecun_normal)
+        if encoded_path == "both":
+            self.r_z_merger = Dense(self.r_dim + self.z_dim, self.r_dim, self.dtype, lecun)
+        elif self.z_dim != self.r_dim:
+            self.reshaper_z = Dense(self.z_dim, self.r_dim, self.dtype, lecun)
+
+    def _make_decoder(self) -> nn.Module:
+        """A linear decoder on R only: flax's default Dense."""
+        return Dense(self.r_dim, 2 * self.y_dim, dtype=self.dtype)
+
+    def rep_to_lat_input(self, R, mask):
+        """One latent per grid point ("latent"), or one from the grid's mean
+        ("both") [B, 1, r_dim]."""
+        if self.encoded_path == "latent":
+            return R
+        return R.mean(dim=-2, keepdim=True)
+
+    def add_global_latent(self, z):
+        """The second half of the channels pooled over the grid, broadcast back."""
+        half = z.shape[-1] // 2
+        return torch.cat([z[..., :half], pool_and_replicate_middle(z[..., half:])], dim=-1)
+
+    def merge_r_z(self, R, z_samples):
+        """relu(Dense([R; z])), R [B, n_ind, r_dim] broadcast over the draws
+        of z_samples [n_z, B, n_ind, z_dim]."""
+        R = R[None].expand(z_samples.shape[:-1] + (R.shape[-1],))
+        return torch.relu(self.r_z_merger(torch.cat([R, z_samples], dim=-1)))
+
+    def trgt_dependent_representation(self, x_c, z_samples, R, x_t, mask_cntxt):
+        """-> [n_z, B, Nt, r_dim]: the draws folded into the batch through the
+        post-sampling CNN and the grid->targets SetConv."""
+        B, n_trgt = x_t.shape[:2]
+        n_z = z_samples.shape[0]
+        x_induced = self._get_x_induced(n_z * B, x_t.device)
+        x_t_rep = collapse_z_samples_batch(replicate_z_samples(x_t, n_z))
+        if self.encoded_path == "latent":
+            z = collapse_z_samples_batch(z_samples)  # [n_z * B, n_ind, z_dim]
+            if self.z_dim != self.r_dim:
+                z = self.reshaper_z(z)
+            z = self.induced_to_induced_post_sampling(z)
+            if self.is_global:
+                z = self.add_global_latent(z)
+        else:
+            z = z_samples.expand(n_z, B, self.n_induced, self.z_dim)
+            z = self.induced_to_induced_post_sampling(
+                collapse_z_samples_batch(self.merge_r_z(R, z)))
+        R_trgt = self.induced_to_trgt(x_induced, x_t_rep, z)
+        return R_trgt.reshape(n_z, B, n_trgt, self.r_dim)

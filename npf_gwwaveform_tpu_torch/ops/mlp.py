@@ -37,6 +37,27 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> to
     return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
+class Dense(nn.Linear):
+    """flax `nn.Dense(out_features, dtype=dtype)` as a module: `dense` of
+    itself. Its kernel starts from `kernel_init` (flax's default
+    `lecun_normal`, not switchable), its bias at zero."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: Optional[torch.dtype] = None,
+                 kernel_init=winit.lecun_normal):
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+        self.kernel_init = kernel_init
+        self.init_params()
+
+    def init_params(self, generator=None) -> None:
+        winit.init_dense(self, self.kernel_init, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        return dense(self, x, self.dtype)
+
+
 class MLP(nn.Module):
     """The hidden size is raised to min(input_size, output_size) when it is
     smaller (the reference's clamp)."""

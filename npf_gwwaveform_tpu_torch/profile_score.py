@@ -3,7 +3,9 @@ and for the batch replayed from its CUDA graph.
 
     python -m npf_gwwaveform_tpu_torch.profile_score --run-dir DIR [--reps 5] [--bf16]
 
-Scores one 256-waveform batch of the run's recorded thetas: first eagerly,
+Scores one 256-waveform batch of the run's recorded thetas (a ConvLNP run
+at its 32 z draws a waveform, [8192, ...] through its post-sampling CNN and
+the grid->targets K1): first eagerly,
 `--reps` times on the host clock (each ends in a device synchronise) and
 once under `torch.profiler` (CPU and CUDA activity); then as `score_run`
 does on CUDA, the batch's CUDA graph (`score.batch_graph`) captured after

@@ -6,7 +6,8 @@ the eager step and for the step replayed from its CUDA graph.
 
 Builds the flagship model, or with `--run-dir` the configuration that run
 recorded (`configs.train_config`: its architecture, data, learning rate and
-clip), from the port's init (seed 0). First the eager
+clip; a ConvLNP run's latent model, criterion and default clip of 1.0
+included), from the port's init (seed 0). First the eager
 step: `--reps` steps timed on the host clock (each ends in a device
 synchronise), then one more traced under `torch.profiler` (CPU and CUDA
 activity). Each eager step is annotated data (waveforms and split), forward

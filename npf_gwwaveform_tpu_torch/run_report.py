@@ -5,7 +5,8 @@ run must land in, and a run's training history beside another's.
     python -m npf_gwwaveform_tpu_torch.run_report history --run RUN_DIR --ref RUN_DIR
 
 `bands` prints a markdown table of every GW ConvCNP run under `--results`
-that holds parameters (time-domain and frequency-domain): its recorded mean LL and median mismatch
+that holds parameters (time-domain and frequency-domain), then every GW
+ConvLNP run: its recorded mean LL and median mismatch
 (from `eval.csv` and `mismatch_theta.csv`) and the band around each
 (`score_bands`). A rescoring on the run's own recorded thetas differs from
 the record only in its context draws, so the bands come from the recorded
@@ -63,11 +64,12 @@ def score_bands(run_dir: str) -> dict:
     return bands_of(*recorded_scores(run_dir))
 
 
-def scored_runs(results: str = "results") -> list:
-    """The GW ConvCNP run directories under `results` that hold parameters
-    (time-domain and frequency-domain), sorted."""
+def scored_runs(results: str = "results", model: str = "ConvCNP") -> list:
+    """The GW run directories of `model` ("ConvCNP": time-domain and
+    frequency-domain; "ConvLNP": the four latent runs) under `results` that
+    hold parameters, sorted."""
     return sorted(os.path.dirname(p) for p in glob.glob(
-        os.path.join(results, "GW_*", "ConvCNP", "run_*", "params.msgpack")))
+        os.path.join(results, "GW_*", model, "run_*", "params.msgpack")))
 
 
 def history_at(history: list, step: int) -> tuple:
@@ -97,7 +99,7 @@ def main(argv=None) -> None:
     if args.cmd == "bands":
         print("| Run | Recorded mean LL | LL band | Recorded median mismatch | Mismatch band |")
         print("| --- | --- | --- | --- | --- |")
-        for run_dir in scored_runs(args.results):
+        for run_dir in scored_runs(args.results) + scored_runs(args.results, "ConvLNP"):
             ll, mm = recorded_scores(run_dir)
             bands = score_bands(run_dir)
             (l0, l1), (m0, m1) = bands["mean_ll"], bands["median_mismatch"]

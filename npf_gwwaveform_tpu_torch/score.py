@@ -1,9 +1,12 @@
-"""Score a frozen GW ConvCNP run: the port's counterpart of the eval block of
-`experiments/reproduce_gw.py` (`--eval-only`).
+"""Score a frozen GW ConvCNP or ConvLNP run: the port's counterpart of the
+eval block of `experiments/reproduce_gw.py` (`--eval-only`).
 
 It scores any ConvCNP run `reproduce_gw.py` wrote (the flat CNN, dilated or
 not, or the UnetCNN; FiLM, additive or no conditioning; time-domain data, 1 s
-or the 2 s long waveforms, or frequency-domain data). Each eval batch (256
+or the 2 s long waveforms, or frequency-domain data), and its ConvLNP runs
+(NPML at 32 z draws a waveform, the draws from the scoring's generator
+after the split; the ELBO run samples from q(z|C,T), since the eval
+forward sees the targets, as `reproduce_gw.py`'s does). Each eval batch (256
 waveforms) generates waveforms at 1024 Hz over the run's `duration` (1 s
 unless the summary says otherwise). In the time domain (`mode` "time") it
 keeps `n_points` evenly strided samples of them (256 unless the summary says
@@ -13,7 +16,8 @@ phase on `n_points` frequencies from 20 to 1024 Hz, two channels. On x in
 [-1, 1] it splits them into a context of U{0..n_context} points per
 waveform and all points as targets, conditions on the normalised
 parameters where the run was conditioned, and records per waveform the NPML
-log-likelihood and the mismatch of the predictive mean: white-noise and in
+log-likelihood (NPML over the z draws, without importance weights) and
+the mismatch of the predictive mean (the mixture's, over the draws): white-noise and in
 the time domain for "time"; for "freq_ap" the aLIGO-weighted
 frequency-domain match of h(f) = A exp(-i psi sigma), prediction and truth
 both rebuilt with the waveform's true phase std sigma. On
@@ -53,7 +57,7 @@ from .data.gw import (
     GWParameterSpace, GWWaveformGenerator, make_batch, mismatch, mismatch_fd, polar_conj,
     psd_aligo,
 )
-from .losses import CNPFLoss
+from .losses import npml_loss
 from .models.convnp import ConvCNP
 from .training.checkpoint import load_run_params, params_from_flax
 from .utils.cuda_graph import StepGraph
@@ -81,8 +85,8 @@ __all__ = ["EVAL_SEED", "n_scored", "load_model", "read_run_thetas", "run_genera
 
 def load_model(run_dir: str, device="cuda", use_kernels: bool = True,
                dtype: Optional[torch.dtype] = None) -> ConvCNP:
-    """The run's model with its trained weights, in eval mode on `device`,
-    computing in `dtype` (None: float32)."""
+    """The run's model (a ConvCNP or a ConvLNP) with its trained weights, in
+    eval mode on `device`, computing in `dtype` (None: float32)."""
     with open(os.path.join(run_dir, "summary.json")) as f:
         summary = json.load(f)
     model = gw_model_from_summary(summary, use_kernels=use_kernels, dtype=dtype)
@@ -126,14 +130,17 @@ def score_batch(model, splitter, generator, theta, gen, space, n_points: int = 2
     `reproduce_gw.py`'s `mm_zdraw` (equal for one draw). "time": the
     white-noise time-domain mismatch of the first channel; "freq_ap": the
     aLIGO-weighted `mismatch_fd` of the rebuilt h(f), as `reproduce_gw.py`'s
-    `eval_batch` scores that mode."""
+    `eval_batch` scores that mode. A latent model draws its z from
+    `generator` after the split, at [n_z * B, ...] through its post-sampling
+    CNN and grid->targets SetConv."""
     x, y, cond, sigma = make_eval_batch(theta, gen, space, n_points, mode, return_aux=True)
     # an unconditioned run is scored with no condition, as reproduce_gw.py does
     batch = splitter(generator, x, y, condition=cond if model.cond_dim > 0 else None)
     out = model(batch["X_cntxt"], batch["Y_cntxt"], batch["X_trgt"],
                  mask_cntxt=batch["mask_cntxt"], mask_trgt=batch["mask_trgt"],
-                 condition=batch.get("condition"))
-    ll = -CNPFLoss(reduction=None)(out, batch["Y_trgt"], batch["mask_trgt"], train=False)
+                 condition=batch.get("condition"), y_trgt=batch["Y_trgt"], generator=generator)
+    # every loss's eval: NPML without importance weights
+    ll = -npml_loss(out, batch["Y_trgt"], batch["mask_trgt"], use_iw=False)
     loc = out.p_yCc.loc
     if mode == "time":
         def mm_of(pred):

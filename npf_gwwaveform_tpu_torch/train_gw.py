@@ -1,8 +1,10 @@
-"""Train a GW ConvCNP and score it: the port's counterpart of the training and
-eval blocks of `experiments/reproduce_gw.py`, for every ConvCNP
-configuration that script trains, on time-domain or frequency-domain data.
+"""Train a GW ConvCNP or ConvLNP and score it: the port's counterpart of the
+training and eval blocks of `experiments/reproduce_gw.py`, for every ConvCNP
+configuration that script trains, on time-domain or frequency-domain data,
+and for its ConvLNP configurations.
 
     python -m npf_gwwaveform_tpu_torch.train_gw [--steps N] [--batch 32]
+        [--model ConvCNP|ConvLNP] [--no-lat-lb] [--loss elbo]
         [--lr 1e-3] [--decay-lr 10] [--clip NORM] [--seed 0] [--device cuda]
         [--mode time|freq_ap] [--no-cond] [--cond-mode film|add] [--n-context 192] [--density 128]
         [--cnn-kernel K] [--cnn-dilations 1,1,2,4,8] [--cnn-arch cnn|unet]
@@ -20,21 +22,26 @@ asked, 64 context points and no density; `--no-cond` drops the
 conditioning and `--density 0` gives no density (the model's 64 points a
 unit, and no `_d` in the tag). `--pallas` only names the tag and the
 summary field: both SetConvs run through K1 on CUDA either way. `--clip`
-clips the gradients' global norm (none by default, as `reproduce_gw.py`
-for ConvCNP).
+clips the gradients' global norm (by default none for ConvCNP and 1.0 for
+ConvLNP, as `reproduce_gw.py`, which records only a clip given).
+`--model ConvLNP` trains the latent family with NPML (16 z draws a
+waveform); `--no-lat-lb` gives it the unbounded q(z) scale (`1e-4 +
+softplus`) and `--loss elbo` trains it with the ELBO from q(z|C,T) (one
+draw), as that script's flags do.
 
 Each step draws `--batch` waveforms on the device (the run's generator at
 1024 Hz over `--duration` seconds; `--mode time`: `--n-points` evenly
 strided samples of them, every 4th of 1024 for 1 s, all 2048 for the 2 s
 long waveforms; `--mode freq_ap`: amplitude and standardised phase on
 `--n-points` frequencies from 20 to 1024 Hz, two channels), splits them with one context count U{0..n_context} for the whole batch (the
-JAX training splitter), and takes one Adam step on the CNPF loss
-(conditioned on the normalised parameters, or with no condition under
-`--no-cond`, as `reproduce_gw.py`'s `one_step`), the learning rate decaying
+JAX training splitter), and takes one Adam step on the run's loss (the CNPF
+loss, NPML or the ELBO; conditioned on the normalised parameters, or with
+no condition under `--no-cond`, as `reproduce_gw.py`'s `one_step`), the
+learning rate decaying
 x`--decay-lr` over `steps // 1562` epochs of 1562 steps. On CUDA the whole
 step is captured once in a CUDA graph and replayed, in chunks of 50 steps
 as `reproduce_gw.py` scans them; on the CPU it runs eagerly. The run
-directory `<out>/<tag>/ConvCNP/run_<run>` gets the files `reproduce_gw.py`
+directory `<out>/<tag>/<model>/run_<run>` gets the files `reproduce_gw.py`
 writes. Every tenth of the run, at the chunks where `reproduce_gw.py`
 writes them (`checkpoint_chunks`), `params.msgpack` and
 `extra_vars.msgpack` in flax's layout, so that a lost run can go on from
@@ -73,10 +80,12 @@ from typing import Optional
 
 import torch
 
-from .configs import STEPS_PER_EPOCH, gw_model_from_summary, gw_train_summary, run_tag
+from .configs import (
+    MODELS, STEPS_PER_EPOCH, criterion_from_summary, default_clip, gw_model_from_summary,
+    gw_train_summary, run_tag,
+)
 from .data.datasplit import CntxtTrgtSplitter, GetRandomIndcs, get_all_indcs
 from .data.gw import GWParameterSpace
-from .losses import CNPFLoss
 from .score import EVAL_SEED, make_eval_batch, run_generator, score_run, write_scores
 from .training.checkpoint import load_run_params, params_from_flax, save_run_params
 from .training.state import count_parameters
@@ -96,8 +105,10 @@ def build_trainer(summary: dict, steps: int, device, seed: int = 0, use_kernels:
     """The run's model in compute `dtype` (None: float32) drawn from the JAX
     init schemes with a generator seeded `seed`, on `device`, with its
     optimizer (the summary's `lr`, `decay_lr` and `grad_clip_norm`, each at
-    `reproduce_gw.py`'s default when absent) and the training splitter; the
-    trainer's own generator is seeded `seed` too."""
+    `reproduce_gw.py`'s default when absent: the clip 1.0 for ConvLNP,
+    `configs.default_clip`), its criterion (`configs.criterion_from_summary`)
+    and the training splitter; the trainer's own generator is seeded `seed`
+    too."""
     device = torch.device(device)
     model = gw_model_from_summary(summary, use_kernels=use_kernels, dtype=dtype)
     init_module(model, torch.Generator().manual_seed(seed))
@@ -106,12 +117,12 @@ def build_trainer(summary: dict, steps: int, device, seed: int = 0, use_kernels:
                                decay_lr=summary.get("decay_lr", 10.0),
                                max_epochs=max(1, steps // STEPS_PER_EPOCH),
                                steps_per_epoch=STEPS_PER_EPOCH,
-                               grad_clip_norm=summary.get("grad_clip_norm"))
+                               grad_clip_norm=default_clip(summary))
     splitter = CntxtTrgtSplitter(
         contexts_getter=GetRandomIndcs(a=0.0, b=summary["n_context"]),
         targets_getter=get_all_indcs,
     )
-    return Trainer(model, CNPFLoss(), optimizer, splitter,
+    return Trainer(model, criterion_from_summary(summary), optimizer, splitter,
                    generator=torch.Generator(device=device).manual_seed(seed))
 
 
@@ -248,7 +259,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--decay-lr", type=float, default=10.0)
     ap.add_argument("--clip", type=float, default=None,
-                    help="clip the gradients' global norm (default: none)")
+                    help="clip the gradients' global norm (default: none for ConvCNP, 1.0 for "
+                         "ConvLNP)")
+    ap.add_argument("--model", default="ConvCNP", choices=list(MODELS))
+    ap.add_argument("--no-lat-lb", action="store_true",
+                    help="ConvLNP: the unbounded q(z) scale 1e-4 + softplus")
+    ap.add_argument("--loss", default=None, choices=["elbo"],
+                    help="ConvLNP: train with the ELBO from q(z|C,T), one z draw")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mode", default="time", choices=["time", "freq_ap"],
@@ -280,7 +297,8 @@ def summary_from_args(args: argparse.Namespace) -> dict:
     """The run's settings from `parser()`'s arguments (`gw_train_summary`)."""
     dilations = [int(d) for d in args.cnn_dilations.split(",")] if args.cnn_dilations else None
     return gw_train_summary(
-        mode=args.mode, cond=not args.no_cond, cond_mode=args.cond_mode, n_context=args.n_context,
+        model=args.model, no_lat_lb=args.no_lat_lb, loss=args.loss, mode=args.mode,
+        cond=not args.no_cond, cond_mode=args.cond_mode, n_context=args.n_context,
         density=args.density or None, cnn_kernel=args.cnn_kernel, cnn_dilations=dilations,
         cnn_arch=args.cnn_arch, duration=args.duration, n_points=args.n_points,
         pallas=args.pallas, lr=args.lr, decay_lr=args.decay_lr, clip=args.clip)

@@ -118,8 +118,17 @@ def load_run_params(run_dir: str):
     return params, extra
 
 
-# flax module path -> the port's, where they differ
-_RENAMES = {"MLP_0": "module"}  # DiscardIthArg's inner MLP
+# flax module path -> the port's, where they differ: DiscardIthArg's inner
+# module, the ConvCNP decoder's MLP or the ConvLNP decoder's Dense
+_RENAMES = {"MLP_0": "module", "Dense_0": "module"}
+
+
+def _flax_name(parts: list, i: int) -> str:
+    """The flax name of the port's path element parts[i]: DiscardIthArg's
+    `module` is `Dense_0` where it holds the leaf itself, else `MLP_0`."""
+    if parts[i] != "module":
+        return parts[i]
+    return "Dense_0" if i == len(parts) - 2 else "MLP_0"
 
 
 def _flatten(tree, prefix=()):
@@ -209,11 +218,11 @@ def flax_from_params(state: dict, buffer_names) -> tuple:
     """The inverse of `params_from_flax`: a state dict of the port's modules
     -> (params, extra_vars) numpy trees in flax's layout; the entries named in
     `buffer_names` (BatchNorm's running `mean`/`var`) go to `batch_stats`."""
-    inverse = {v: k for k, v in _RENAMES.items()}
     buffer_names = set(buffer_names)
     params, stats = {}, {}
     for key, t in state.items():
-        *mods, name = (inverse.get(p, p) for p in key.split("."))
+        parts = key.split(".")
+        *mods, name = (_flax_name(parts, i) for i in range(len(parts)))
         arr = t.detach().cpu().float().numpy()
         if name == "weight":
             name = "kernel"

@@ -6,8 +6,11 @@ A train step splits the batch into contexts and targets, runs the model in
 train mode (BatchNorm on batch statistics, its running statistics updated),
 computes the criterion's train loss, backpropagates and takes one optimizer
 step. Every random draw comes from the state's `torch.Generator`, on the
-batch's device. Nothing in a step reads a value back to the host: the
-metrics are 0-d device tensors.
+batch's device: the split's, and a latent model's z draws after it. The
+model sees the targets' values in train and eval mode alike, as JAX's
+`_apply` passes `Y_trgt` (a latent model with `is_q_zCct` encodes them).
+Nothing in a step reads a value back to the host: the metrics are 0-d
+device tensors.
 
 `train_steps_generated` and `train_steps_scanned` take many steps: on CUDA
 the step is captured once in a CUDA graph (`utils.cuda_graph.StepGraph`,
@@ -49,10 +52,13 @@ class Trainer:
     def model(self) -> torch.nn.Module:
         return self.state.model
 
-    def _forward(self, batch: dict):
+    def _forward(self, batch: dict, generator: Optional[torch.Generator] = None):
+        """The model on a split batch, the targets' values included; a latent
+        model draws from `generator` (default: the state's)."""
         return self.model(batch["X_cntxt"], batch["Y_cntxt"], batch["X_trgt"],
                           mask_cntxt=batch["mask_cntxt"], mask_trgt=batch["mask_trgt"],
-                          condition=batch.get("condition"))
+                          condition=batch.get("condition"), y_trgt=batch["Y_trgt"],
+                          generator=self.state.generator if generator is None else generator)
 
     def loss_and_grads(self, batch: dict) -> torch.Tensor:
         """Forward in train mode on a split batch and backward: the loss, with
@@ -85,16 +91,17 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, x, y, generator: torch.Generator, cond=None) -> torch.Tensor:
-        """Per-function eval loss [B] (NPML forced) in eval mode, split with
-        the given generator."""
+        """Per-function eval loss [B] (NPML forced) in eval mode, split (and a
+        latent model's z drawn) with the given generator."""
         self.model.eval()
         batch = self.splitter(generator, x, y, condition=cond)
-        return self.eval_criterion(self._forward(batch), batch["Y_trgt"], batch["mask_trgt"],
-                                   train=False)
+        return self.eval_criterion(self._forward(batch, generator), batch["Y_trgt"],
+                                   batch["mask_trgt"], train=False)
 
     @torch.no_grad()
     def predict(self, batch: dict) -> NPFOutput:
-        """The eval-mode forward on an already split batch."""
+        """The eval-mode forward on an already split batch (a latent model's
+        draws from the state's generator)."""
         self.model.eval()
         return self._forward(batch)
 

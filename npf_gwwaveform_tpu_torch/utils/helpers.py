@@ -61,3 +61,33 @@ def set_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+# ---- z-sample plumbing: n_z draws folded into the batch and back ----
+
+
+def collapse_z_samples_batch(t: torch.Tensor) -> torch.Tensor:
+    """[n_z, B, ...] -> [n_z * B, ...]."""
+    return t.reshape((t.shape[0] * t.shape[1],) + tuple(t.shape[2:]))
+
+
+def extract_z_samples_batch(t: torch.Tensor, n_z_samples: int) -> torch.Tensor:
+    """[n_z * B, ...] -> [n_z, B, ...], the inverse of `collapse_z_samples_batch`."""
+    return t.reshape((n_z_samples, t.shape[0] // n_z_samples) + tuple(t.shape[1:]))
+
+
+def replicate_z_samples(t: torch.Tensor, n_z_samples: int) -> torch.Tensor:
+    """[...] -> [n_z, ...], a broadcast view."""
+    return t[None].expand((n_z_samples,) + tuple(t.shape))
+
+
+def pool_and_replicate_middle(t: torch.Tensor) -> torch.Tensor:
+    """[B, *mid, C]: the mean over every middle dimension, broadcast back to
+    t's shape."""
+    pooled = t.reshape(t.shape[0], -1, t.shape[-1]).mean(dim=1)
+    return pooled.reshape((t.shape[0],) + (1,) * (t.dim() - 2) + (t.shape[-1],)).expand(t.shape)
+
+
+def logcumsumexp(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Numerically stable log of the cumulative sum of exp along `dim`."""
+    return torch.logcumsumexp(x, dim=dim)

@@ -1,11 +1,22 @@
 """The JAX package's own gap between bfloat16 and float32 scoring of every
 GW ConvCNP run in `results/` but the flagship's `run_1` (which
 `tests/jax_bf16_score_gap.py` covers), time-domain and frequency-domain,
-for setting the port's bf16 scoring bars. Not a test: run it by hand on the
-CPU.
+and of every GW ConvLNP run, for setting the port's bf16 scoring bars. Not
+a test: run it by hand on the CPU.
 
     JAX_PLATFORMS=cpu python tests/jax_bf16_family_gaps.py [--n 2048] [--n-long 256]
-        [--long-batch 256] [--out tests/jax_bf16_family_gaps.json] [--runs RUN_DIR ...]
+        [--long-batch 256] [--n-latent-bf16 256] [--latent-batch 64]
+        [--out tests/jax_bf16_family_gaps.json] [--runs RUN_DIR ...]
+
+A ConvLNP run is scored at its 32 z draws a waveform (NPML without
+importance weights; the ELBO run from q(z|C,T), its targets given, as
+`reproduce_gw.py` scores it), the draws from one latent key per batch, the
+same in both dtypes (the noise is drawn in float32 whatever the dtype), in
+batches of `--latent-batch`: in float32 on the first `--n` thetas, which
+give its `f32_bands` (the records of these runs were not made with the JAX
+package's float32 arithmetic either: `tests/jax_score_offsets.py`), and in
+bf16 on the first `--n-latent-bf16` (op by op bf16 at 32 draws is slow on
+the CPU); the gap is taken over those.
 
 Each run is scored on its first `--n` recorded thetas (`--n-long` for the
 2 s long-waveform runs, whose bf16 model with the chain in interpret mode is
@@ -74,6 +85,8 @@ def _restore(path):
 
 def models(summary):
     """(float32, bf16 fused) JAX models of the run, XLA SetConv on both."""
+    if summary["model"] == "ConvLNP":
+        return latent_models(summary)
     dilations = summary.get("cnn_dilations")
     bf16 = gp_model_1d("ConvCNP", dtype=jnp.bfloat16,
                        cnn_kernel_size=summary.get("cnn_kernel_size") or 19,
@@ -89,7 +102,21 @@ def models(summary):
     return f32, bf16
 
 
-def gap(run_dir, n, batch):
+def latent_models(summary):
+    """(float32, bf16) JAX models of a ConvLNP run, XLA SetConv on both, the
+    bf16 one built as `reproduce_gw.py --bf16` builds it."""
+    f32 = gw_model_from_summary(summary).clone(use_pallas_setconv=False)
+    bf16 = gp_model_1d("ConvLNP", dtype=jnp.bfloat16).clone(
+        cond_dim=4 if summary.get("conditioned") else 0,
+        cond_mode=summary.get("cond_mode") or "film",
+        **({"lat_scale_transform": "softplus", "min_lat_sigma": 1e-4}
+           if summary.get("no_lat_lb") else {}),
+        **({"is_q_zCct": True, "n_z_samples_train": 1}
+           if summary.get("train_loss_objective") == "elbo" else {}))
+    return f32, bf16
+
+
+def gap(run_dir, n, batch, n_bf16=None):
     with open(os.path.join(run_dir, "summary.json")) as f:
         summary = json.load(f)
     variables = {"params": _restore(os.path.join(run_dir, "params.msgpack")),
@@ -130,25 +157,31 @@ def gap(run_dir, n, batch):
                                  y.shape[:2] + (1,))
             batch = splitter(key, x, y, condition=space.normalize(theta) if cond else None)
             out = model.apply(variables, batch["X_cntxt"], batch["Y_cntxt"], batch["X_trgt"],
-                              mask_cntxt=batch["mask_cntxt"], mask_trgt=batch["mask_trgt"],
+                              batch["Y_trgt"], mask_cntxt=batch["mask_cntxt"],
+                              mask_trgt=batch["mask_trgt"],
                               **({"condition": batch["condition"]} if cond else {}),
-                              train=False)
+                              train=False, rngs={"latent": jax.random.fold_in(key, 1)})
             ll = -CNPFLoss(reduction=None)(out, batch["Y_trgt"], batch["mask_trgt"], train=False)
-            return ll, mismatch_of(out.p_yCc.loc[0])
+            return ll, mismatch_of(jnp.mean(out.p_yCc.loc, axis=0))
         return score
 
     res = []
-    for model in models(summary):
+    for model, count in zip(models(summary), (len(thetas), n_bf16 or len(thetas))):
         score = scorer(model)
         parts = [score(jnp.asarray(thetas[i:i + batch]),
                        jax.random.fold_in(jax.random.PRNGKey(0), i))
-                 for i in range(0, len(thetas), batch)]
+                 for i in range(0, count, batch)]
         res.append([np.concatenate([np.asarray(p[k], np.float32) for p in parts])
                     for k in range(2)])
-    (ll32, mm32), (ll16, mm16) = res
+    (ll32_all, mm32_all), (ll16, mm16) = res
+    ll32, mm32 = ll32_all[:len(ll16)], mm32_all[:len(ll16)]
     d = ll16 - ll32
-    bands = {"f32_bands": bands_of(ll32, mm32)} if freq else {}
-    return {"n": int(len(thetas)), "batch": batch, **bands,
+    latent = summary["model"] == "ConvLNP"
+    bands = {"f32_bands": bands_of(ll32_all, mm32_all)} if freq or latent else {}
+    if latent:
+        bands["f32_all"] = {"n": int(len(ll32_all)), "mean_ll": float(ll32_all.mean()),
+                            "median_mismatch": float(np.median(mm32_all))}
+    return {"n": int(len(ll16)), "batch": batch, **bands,
             "f32": {"mean_ll": float(ll32.mean()), "median_mismatch": float(np.median(mm32))},
             "bf16": {"mean_ll": float(ll16.mean()), "median_mismatch": float(np.median(mm16))},
             "d_mean_ll": float(ll16.mean() - ll32.mean()),
@@ -161,13 +194,15 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=2048)
     ap.add_argument("--n-long", type=int, default=256)
     ap.add_argument("--long-batch", type=int, default=256)
+    ap.add_argument("--n-latent-bf16", type=int, default=256)
+    ap.add_argument("--latent-batch", type=int, default=64)
     ap.add_argument("--out", default=os.path.join(ROOT, "tests", "jax_bf16_family_gaps.json"))
     ap.add_argument("--runs", nargs="*", default=None,
                     help="run dirs (default: every GW ConvCNP run with parameters)")
     args = ap.parse_args()
     runs = args.runs or sorted(
-        os.path.dirname(p) for p in glob.glob(
-            os.path.join(RESULTS, "GW_*", "ConvCNP", "run_*", "params.msgpack"))
+        os.path.dirname(p) for model in ("ConvCNP", "ConvLNP") for p in glob.glob(
+            os.path.join(RESULTS, "GW_*", model, "run_*", "params.msgpack"))
         if not os.path.dirname(p).endswith(FLAGSHIP))
     out = {}
     if os.path.exists(args.out):
@@ -176,9 +211,13 @@ def main() -> None:
     for run_dir in runs:
         name = os.path.relpath(os.path.abspath(run_dir), RESULTS)
         with open(os.path.join(run_dir, "summary.json")) as f:
-            long = json.load(f).get("duration", 1.0) != 1.0
-        out[name] = (gap(run_dir, args.n_long, args.long_batch) if long
-                     else gap(run_dir, args.n, 256))
+            summary = json.load(f)
+        if summary["model"] == "ConvLNP":
+            out[name] = gap(run_dir, args.n, args.latent_batch, args.n_latent_bf16)
+        elif summary.get("duration", 1.0) != 1.0:
+            out[name] = gap(run_dir, args.n_long, args.long_batch)
+        else:
+            out[name] = gap(run_dir, args.n, 256)
         r = out[name]
         print(f"{name}: n {r['n']}, f32 mean LL {r['f32']['mean_ll']:.3f}, bf16 "
               f"{r['bf16']['mean_ll']:.3f}, gap {r['d_mean_ll']:+.4f} (sd {r['d_ll_std']:.3f}), "

@@ -27,6 +27,20 @@ the same waveforms; each (model, draws) pair's; and per waveform, the JAX
 package on the record's draws against the record (what the recording
 device's arithmetic adds) and the port against the JAX package on the same
 draws (what the port adds).
+
+A ConvLNP run (NPML at 32 z draws, the ELBO run from q(z|C,T)) is scored on
+the record's own z draws too: the latent key of each batch of 256
+(`reproduce_gw.py`'s third split of the batch key) gives JAX's draws for the
+whole batch (the latent path alone, `latent_draws`), their standard-normal
+noise is recovered as (z - loc) / scale in float64, and both packages then
+score the chunks on that noise (JAX through its `NormalDiag.sample`
+replaced, in this process only, by one that returns loc + scale * eps; the
+port through `eps=`). On the port's own draws the port draws its z from the
+same CPU generator after the split, as `score_run` does, and JAX takes the
+record's noise. Such a run also reports the per-draw mismatch
+(`mismatch_zdraw`, the mean over the draws of each draw's mismatch) beside
+the record's `mismatch_zdraw_median`, so that the z noise and the port are
+told apart.
 """
 
 import argparse
@@ -42,6 +56,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+import npf_gwwaveform_tpu.distributions as jax_distributions  # noqa: E402
 from npf_gwwaveform_tpu.configs import gw_model_from_summary  # noqa: E402
 from npf_gwwaveform_tpu.data import (  # noqa: E402
     CntxtTrgtSplitter, GetRandomIndcs, GWParameterSpace, GWWaveformGenerator, get_all_indcs,
@@ -66,10 +81,41 @@ def _restore(path):
     return flax.serialization.from_bytes(flax.serialization.msgpack_restore(data), data)
 
 
-def _stats(ll, mm):
-    return {"mean_ll": float(ll.mean()), "median_mismatch": float(np.median(mm)),
-            "p90_mismatch": float(np.percentile(mm, 90)),
-            "p99_mismatch": float(np.percentile(mm, 99))}
+def _stats(ll, mm, mz=None):
+    out = {"mean_ll": float(ll.mean()), "median_mismatch": float(np.median(mm)),
+           "p90_mismatch": float(np.percentile(mm, 90)),
+           "p99_mismatch": float(np.percentile(mm, 99))}
+    if mz is not None:
+        out["mismatch_zdraw_median"] = float(np.median(mz))
+    return out
+
+
+# the noise JAX's NormalDiag.sample returns while it is replaced (a latent run)
+_EPS = []
+
+
+def _sample_given_eps(self, key, sample_shape=()):
+    return self.loc + self.scale * _EPS[0]
+
+
+def latent_draws(jm, variables, x, y, mask_c, cond, key, conditioned):
+    """JAX's z draws of one batch from the latent key, as its eval forward
+    makes them (the latent path alone) -> the float64 noise [n_z, B, n_lat,
+    z_dim] that gives them: (z - loc) / scale of the distribution sampled."""
+    def lat(module, x, y, mask_c, cond):
+        x_e = module.x_encoder(x)
+        emb = module.cond_encoder(cond) if conditioned else None
+        R = module.encode_globally(x_e, y, mask_c, train=False, cond_emb=emb)
+        if emb is not None and module.cond_mode == "add":
+            R = R + emb[:, None, :]
+        mask_t = jnp.ones(mask_c.shape, bool)
+        return module.latent_path(x_e, R, x_e, y, mask_c, mask_t, False, cond_emb=emb)
+
+    z, q_c, q_ct = jax.jit(lambda *a: jm.apply(variables, *a, method=lat,
+                                               rngs={"latent": key}))(x, y, mask_c, cond)
+    q = q_c if q_ct is None else q_ct
+    return (np.asarray(z, np.float64) - np.asarray(q.loc, np.float64)) / np.asarray(
+        q.scale, np.float64)
 
 
 def main() -> None:
@@ -93,9 +139,10 @@ def main() -> None:
 
     freq = summary.get("mode", "time") == "freq_ap"
     # the record's eval draws, batch by batch, as reproduce_gw.py's eval_batch
-    ys, conds, masks, sigmas = [], [], {"jax": []}, []
+    ys, conds, masks, sigmas, latent_keys = [], [], {"jax": []}, [], []
     for i in range(args.n // EVAL_BATCH):
-        kd, ks, _ = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(123), i), 3)
+        kd, ks, kl = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(123), i), 3)
+        latent_keys.append(kl)
         theta = space.sample(kd, EVAL_BATCH)
         if freq:
             fd = gen.frequency_domain(theta, n_f=n_points)
@@ -135,52 +182,85 @@ def main() -> None:
 
     conditioned = bool(summary.get("conditioned"))
     psd = jax_psd_aligo(gen.freqs(n_points))
+    latent = summary["model"] == "ConvLNP"
+    # the record's z noise, one batch of 256 at a time: [n_z, n, n_lat, z_dim]
+    eps = np.concatenate([
+        latent_draws(jm, variables, *(jnp.asarray(a[i * EVAL_BATCH:(i + 1) * EVAL_BATCH])
+                                      for a in (x, y, masks["jax"], cond)), kl, conditioned)
+        for i, kl in enumerate(latent_keys)], axis=1) if latent else None
+    if latent:
+        jax_distributions.NormalDiag.sample = _sample_given_eps
 
-    @jax.jit
-    def jax_score(x, y, mask_c, cond, sigma):
-        mask_t = jnp.ones(mask_c.shape, bool)
-        out = jm.apply(variables, x, y, x, mask_cntxt=mask_c, mask_trgt=mask_t, train=False,
-                       **({"condition": cond} if conditioned else {}))
-        ll = -JaxCNPFLoss(reduction=None)(out, y, mask_t, train=False)
+    def jax_mm(loc, y, sigma):
         if not freq:
-            return ll, jax_mismatch(out.p_yCc.loc[0, ..., 0], y[..., 0])
-
+            return jax_mismatch(loc[..., 0], y[..., 0])
         def recon(ap):
             return ap[..., 0] * jnp.exp(-1j * ap[..., 1] * sigma)
-        return ll, jax_mismatch_fd(recon(out.p_yCc.loc[0]), recon(y), psd=psd)
+        return jax_mismatch_fd(recon(loc), recon(y), psd=psd)
+
+    @jax.jit
+    def jax_forward(x, y, mask_c, cond, sigma, eps):
+        _EPS[:] = [eps]
+        mask_t = jnp.ones(mask_c.shape, bool)
+        out = jm.apply(variables, x, y, x, y, mask_cntxt=mask_c, mask_trgt=mask_t, train=False,
+                       rngs={"latent": jax.random.PRNGKey(0)},
+                       **({"condition": cond} if conditioned else {}))
+        ll = -JaxCNPFLoss(reduction=None)(out, y, mask_t, train=False)
+        loc = out.p_yCc.loc
+        mz = jnp.mean(jax.vmap(lambda l: jax_mm(l, y, sigma))(loc), axis=0)
+        return ll, jax_mm(jnp.mean(loc, axis=0), y, sigma), mz
+
+    def jax_score(x, y, mask_c, cond, sigma, eps, g):
+        # JAX takes the record's noise (eps); the port's generator g is unused
+        return jax_forward(x, y, mask_c, cond, sigma, jnp.asarray(eps, jnp.float32)
+                           if eps is not None else None)
 
     tm = load_model(args.run, "cpu")
     psd_t = torch.from_numpy(np.array(psd))
 
-    def port_score(x, y, mask_c, cond, sigma):
+    def port_mm(loc, y, sigma):
+        if not freq:
+            return mismatch(loc[..., 0], y[..., 0])
+
+        def recon(ap):
+            return polar_conj(ap[..., 0], ap[..., 1] * sigma)
+        return mismatch_fd(recon(loc), recon(y), psd=psd_t)
+
+    def port_score(x, y, mask_c, cond, sigma, eps, g):
         x, y, mask_c, cond, sigma = (torch.from_numpy(np.ascontiguousarray(a))
                                      for a in (x, y, mask_c, cond, sigma))
         mask_t = torch.ones_like(mask_c)
         with torch.no_grad():
-            out = tm(x, y, x, mask_c, mask_t, cond if conditioned else None)
+            out = tm(x, y, x, mask_c, mask_t, cond if conditioned else None, y_trgt=y,
+                     generator=g, eps=None if eps is None else torch.from_numpy(eps).float())
             ll = -CNPFLoss(reduction=None)(out, y, mask_t, train=False)
-            if not freq:
-                return ll, mismatch(out.p_yCc.loc[0, ..., 0], y[..., 0])
-
-            def recon(ap):
-                return polar_conj(ap[..., 0], ap[..., 1] * sigma)
-            return ll, mismatch_fd(recon(out.p_yCc.loc[0]), recon(y), psd=psd_t)
+            loc = out.p_yCc.loc
+            mz = torch.stack([port_mm(l, y, sigma) for l in loc]).mean(dim=0)
+            return ll, port_mm(loc.mean(dim=0), y, sigma), mz
 
     scores = {}
+    first_seed = int(args.seeds.split(",")[0])
     for model, score in (("jax", jax_score), ("port", port_score)):
         for draws, mask in masks.items():
-            if model == "port" and draws not in ("jax", f"port_{args.seeds.split(',')[0]}"):
+            if model == "port" and draws not in ("jax", f"port_{first_seed}"):
                 continue
+            # the port on its own draws draws its own z (after the split, as score_run)
+            own_z = model == "port" and draws != "jax"
+            g = torch.Generator().manual_seed(first_seed + 1000) if own_z else None
             parts = [score(x[i:i + args.chunk], y[i:i + args.chunk], mask[i:i + args.chunk],
-                           cond[i:i + args.chunk], sigma[i:i + args.chunk])
+                           cond[i:i + args.chunk], sigma[i:i + args.chunk],
+                           None if eps is None or own_z else eps[:, i:i + args.chunk], g)
                      for i in range(0, args.n, args.chunk)]
             scores[model, draws] = [np.concatenate([np.asarray(p[k], np.float64) for p in parts])
-                                    for k in range(2)]
+                                    for k in range(3)]
             print(f"{model} on {draws}'s draws: {_stats(*scores[model, draws])}", flush=True)
 
     rec_ll, rec_mm = (a[:args.n].astype(np.float64) for a in recorded_scores(args.run))
     d_rec = scores["jax", "jax"][0] - rec_ll
-    out = {"run": args.run, "n": args.n, "record": _stats(rec_ll, rec_mm),
+    record = _stats(rec_ll, rec_mm)
+    if latent:  # over all the record's waveforms: it keeps no per-waveform values
+        record["mismatch_zdraw_median (all)"] = summary["mismatch_zdraw_median"]
+    out = {"run": args.run, "n": args.n, "record": record,
            "scores": {f"{m}@{d}": _stats(*v) for (m, d), v in scores.items()},
            "jax_vs_record": {"d_ll_mean": float(d_rec.mean()),
                              "d_ll_max_abs": float(np.abs(d_rec).max()),
@@ -191,7 +271,9 @@ def main() -> None:
         out["port_vs_jax"][draws] = {
             "d_ll_max_abs": float(np.abs(scores["port", draws][0] - scores["jax", draws][0]).max()),
             "d_mismatch_max_abs": float(
-                np.abs(scores["port", draws][1] - scores["jax", draws][1]).max())}
+                np.abs(scores["port", draws][1] - scores["jax", draws][1]).max()),
+            "d_mismatch_zdraw_max_abs": float(
+                np.abs(scores["port", draws][2] - scores["jax", draws][2]).max())}
     n_ctx = {d: m.sum(axis=1) for d, m in masks.items()}
     out["mean_context"] = {d: float(c.mean()) for d, c in n_ctx.items()}
     print(json.dumps(out))

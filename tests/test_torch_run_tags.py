@@ -85,7 +85,7 @@ def test_gw_train_summary_defaults_and_refusals():
         "n_context": 64}
     with pytest.raises(ValueError):
         gw_train_summary(cnn_arch="unet", cnn_dilations=[1, 1, 2, 4, 8])
-    for bad in (dict(model="ConvLNP"), dict(banded=True), dict(remat=True), dict(n_points=512),
+    for bad in (dict(model="LNP"), dict(banded=True), dict(remat=True), dict(n_points=512),
                 dict(mode="freq_ap", n_points=512)):
         with pytest.raises(NotImplementedError):
             gw_train_summary(**bad)

@@ -145,13 +145,14 @@ def test_score_run_on_cpu():
 
 
 def test_gw_model_from_summary_refuses_unported_configs():
-    """What the port still refuses: ConvLNP, a data mode JAX lacks (in a
-    model and in a training summary) and the UnetCNN with dilations (JAX
-    refuses it too). Every time-domain family builds in bfloat16 and
-    trains, and frequency-domain targets (two channels) since their
-    port."""
+    """What the port still refuses: the set and attention families (ConvLNP
+    builds since its port), a data mode JAX lacks (in a model and in a
+    training summary) and the UnetCNN with dilations (JAX refuses it too).
+    Every time-domain family builds in bfloat16 and trains, and
+    frequency-domain targets (two channels) since their port."""
     with pytest.raises(NotImplementedError):
-        gw_model_from_summary({"model": "ConvLNP"})
+        gw_model_from_summary({"model": "AttnLNP"})
+    assert gw_model_from_summary({"model": "ConvLNP"}).has_latent
     with pytest.raises(NotImplementedError):
         gw_model_from_summary({"model": "ConvCNP", "mode": "freq"})
     with pytest.raises(ValueError):
@@ -160,7 +161,7 @@ def test_gw_model_from_summary_refuses_unported_configs():
     with pytest.raises(ValueError):
         gw_train_summary(mode="freq")
     with pytest.raises(NotImplementedError):
-        gw_train_summary(model="ConvLNP")
+        gw_train_summary(model="LNP")
     freq = gw_model_from_summary({"model": "ConvCNP", "mode": "freq_ap"})
     assert freq.y_dim == 2 and freq.decoder.module.out.out_features == 4
     assert gw_train_summary(mode="freq_ap")["mode"] == "freq_ap"
