@@ -153,7 +153,38 @@ Phases, each announced with the seconds elapsed:
      holding K1 two or three times and K2/K3 never, the loss falling by
      its bar and its last 50 steps' median at or below its level over
      1,000 steps, one kernel-path step against the plain path).
-It ends with a JSON line of per-kernel numbers and the JSON result line.
+ 17. the GP paths' kernels: K1 at the GP shapes (128 points a function at
+     sorted x ~ U(-1, 1), not evenly spaced, and the 192-point grid): the
+     context (U{0..50} real) onto the grid at B = 256 and 32, the grid onto
+     the 128 targets at C = 128 at B = 256, 32, 8,192 (32 z draws x 256,
+     headline ConvLNP scoring), 4,096 (16 x 256, ablation scoring) and 512
+     (16 x 32, an NPML step), and the ELBO-trained runs' encoding of all 128
+     targets; K2 at M = 32,768 and 4,096 and K3 at M = 4,096 with the GP
+     ConvCNP's decoder; each at phases 3-5's bars, two launches bit-identical;
+ 18. the GP sampler on the card: 4,096 functions of each kernel and of the
+     All_Kernels mixture from one seed, finite, each kernel's sample
+     covariance at one fixed x within 6 standard errors of the kernel's;
+ 19. the 21 conv-family GP runs in `results/` (ConvCNP, ConvLNP and the
+     RBF ConvLNP objective-ablation grid): each scored with
+     `score_gp.score_run` over 9,984 fresh functions a kernel (29,952 for
+     All_Kernels), graphed after each kernel's first batch, through K1 (and
+     K2 for ConvCNP), within the band of the JAX package's eval draws
+     scored by the port's CPU forward (`tests/jax_bf16_family_gaps.json`),
+     the record's band printed beside;
+     for one run of each family (ConvCNP, the headline NPML ConvLNP, an
+     ELBO-trained ablation run) the graphed scores against eager ones (LL
+     1e-4), the launches of a traced replay (K1 x2 and K2; K1 x2; K1 x3) and
+     one batch on the kernel path against the plain path;
+ 20. the GP training configurations of `experiments/reproduce_gp.py` (the
+     ConvCNP, the headline ConvLNP NPML, the notebook ablation
+     `ConvLNP_ELBOFalse_LatLBFalse_SigLBFalse`) on RBF functions sampled on
+     the card inside the step: phase 8's graph checks (bit for bit), 1,000
+     graphed steps at batch 32 from seed 0 (seeds 1-2 fallbacks) held to
+     bars from the JAX package's own runs (`GP_FALL`, `GP_LEVEL`), one
+     step on the kernel path against the plain path, and a traced replay's
+     launches (K1 x2, K2, K3; K1 x2).
+Phases 17-20 run after phase 16's scoring and before phase 14's training
+loop. It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
 
@@ -176,8 +207,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from npf_gwwaveform_tpu_torch import _build
 from npf_gwwaveform_tpu_torch import score as score_mod
-from npf_gwwaveform_tpu_torch import train_gw
+from npf_gwwaveform_tpu_torch import score_gp, train_gp, train_gw
 from npf_gwwaveform_tpu_torch.configs import gw_model_from_summary, gw_train_summary, train_config
+from npf_gwwaveform_tpu_torch.data.gp import sample_covariance_z
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.kernel_measure import (
     K2_BF16_SUM_TOL, K2_CASES, cublas_chain_ms, k1_bound, k1_inputs, k2_bf16_ok, k2_bf16_report,
@@ -191,7 +223,9 @@ from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
     fused_relu_mlp, fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain, fused_relu_mlp_plain,
 )
 from npf_gwwaveform_tpu_torch.ops.kernels.setconv import setconv_exprbf_fwd, setconv_exprbf_plain
-from npf_gwwaveform_tpu_torch.run_report import recorded_scores, score_bands, scored_runs
+from npf_gwwaveform_tpu_torch.run_report import (
+    gp_band, gp_runs, recorded_scores, score_bands, scored_runs,
+)
 from npf_gwwaveform_tpu_torch.score import (
     batch_graph, eval_splitter, load_model, make_eval_batch, read_run_thetas, run_generator,
     score_batch, score_run,
@@ -270,6 +304,12 @@ ROUNDING_DRAWS = 8
 # context->grid launch of the freq_ap FiLM train step, whose ten graphed
 # steps had just equalled the eager ones bit for bit) (PERF.md, section 6)
 TRACE_TRIES = 3
+# traces that record no kernel at all a replay may take on top: once, in one
+# run of this script on an H100, three traces in a row of one graph (the
+# additive bf16 training path's) listed no kernel of any kind, though the
+# same graph's replay had traced in full a minute before (PERF.md, section
+# 6); such a trace says nothing of the launches, so another is traced
+EMPTY_TRACE_TRIES = 5
 TRAIN_STEPS, TRAIN_BATCH = 500, 32
 LONG_TRAIN_STEPS = 300  # the 2 s paths' graphed steps in phase 14
 # the loss must fall: the median per-step loss over steps 251-500 at least 300
@@ -384,6 +424,50 @@ FAMILY_FALL = {"additive": 150.0, "dilated": 250.0, "k37": 300.0, "unet": 300.0,
 # (PERF.md, section 6, written before the first call)
 FAMILY_LEVEL = {"latent npml": -150.0, "latent elbo": -100.0, "latent latlbF": -100.0}
 TRAIN_CALL, TRAIN16_CALL = (2, 1, 1, 0, 0), (2, 0, 0, 1, 1)
+
+# ---- the GP paths (phases 17-20): the 21 conv-family GP runs, 128 points a
+# function on sorted x ~ U(-1, 1), the 192-point grid, U{0..50} contexts
+GP_RUNS = tuple(gp_runs(RESULTS))
+assert len(GP_RUNS) == 21, GP_RUNS
+GP_CNP = os.path.join(RESULTS, "RBF_Kernel", "ConvCNP", "run_0")
+GP_NPML = os.path.join(RESULTS, "RBF_Kernel", "ConvLNP", "run_0")
+GP_ELBO = os.path.join(RESULTS, "RBF_Kernel", "ConvLNP_ELBOTrue_LatLBFalse_SigLBFalse", "run_0")
+GP_NOTEBOOK = os.path.join(RESULTS, "RBF_Kernel", "ConvLNP_ELBOFalse_LatLBFalse_SigLBFalse",
+                           "run_0")
+# one run of each family: graphed scoring against eager, one batch on the
+# kernel path against the plain path, one replay traced
+GP_FAMILIES = {GP_CNP: "gp cnp", GP_NPML: "gp npml", GP_ELBO: "gp elbo"}
+GP_N_TEST, GP_POINTS, GP_CONTEXT = 9984, 128, 50
+# phase 18: 4,096 functions of each kernel from one seed at one fixed x;
+# each sample covariance entry within 6 of its standard errors of the
+# kernel's (`data.gp.sample_covariance_z`; tests/test_torch_gp.py holds the
+# CPU's draws to the same bar)
+GP_MOMENT_N, GP_MOMENT_SES = 4096, 6.0
+# phase 20: the three GP training configurations of reproduce_gp.py
+# (its defaults: BatchNorm eps 1e-3, the intended init, Adam 1e-3 decaying
+# x10 over 100 epochs of 1,562 steps, ConvLNP clipped at 1.0), 1,000
+# graphed steps at batch 32 on RBF functions from seeds 0-2 (the later ones
+# fallbacks); a draw meets its bars when its median loss over the last 50
+# steps lies GP_FALL nats below its median over the first 50 and at or
+# below GP_LEVEL. From the JAX package's own 1,000-step runs on the CPU
+# (tests/jax_reference_training.py --gp, seed 0, the two ConvLNP with
+# --banded; PERF.md section 6, written before the call): medians over the
+# first and last 50 steps 172.23 -> 79.16 (ConvCNP; its 50-step means
+# swing 62-318 on the way), 154.96 -> -48.92 (NPML) and 168.71 -> -23.95
+# (notebook), so half each fall and each last median plus 50 nats
+GP_TRAIN_STEPS = 1000
+GP_TRAIN = (
+    ("gp cnp", train_gp.train_summary("ConvCNP")),
+    ("gp npml", train_gp.train_summary("ConvLNP")),
+    ("gp notebook", train_gp.train_summary("ConvLNP", ablation="ELBOFalse_LatLBFalse_SigLBFalse")),
+)
+GP_FALL = {"gp cnp": 46.5, "gp npml": 101.9, "gp notebook": 96.3}
+GP_LEVEL = {"gp cnp": 129.2, "gp npml": 1.1, "gp notebook": 26.0}
+# the launches of one call of each GP path, (K1, K2, K3, K2-bf16, K3-bf16)
+GP_SCORE_CALL = {"gp cnp": (2, 1, 0, 0, 0), "gp npml": (2, 0, 0, 0, 0),
+                 "gp elbo": (3, 0, 0, 0, 0)}
+GP_TRAIN_CALL = {"gp cnp": (2, 1, 1, 0, 0), "gp npml": (2, 0, 0, 0, 0),
+                 "gp notebook": (2, 0, 0, 0, 0)}
 
 _T0 = time.perf_counter()
 
@@ -706,7 +790,7 @@ def _step_grad_errs(grads, ref):
     return errs, zero
 
 
-def check_train_step(model, summary, gen, dtype=None, term_scale=False):
+def check_train_step(model, summary, gen, dtype=None, term_scale=False, build=None, data=None):
     """One train step on the kernel path against one on the plain path, on
     copies with identical parameters and one identical split batch. Each
     parameter's gradient is held to the step's gradient bar of its max
@@ -729,20 +813,27 @@ def check_train_step(model, summary, gen, dtype=None, term_scale=False):
     1.09e-3 of its terms. In float32 a gradient past its bar is accepted
     where the plain path reaches it (within the bar) itself when the
     modules the kernels replace round apart (`rounding_grads`): a discrete
-    switch at a rounding boundary that either path may take."""
+    switch at a rounding boundary that either path may take. `build(use_kernels)`
+    and `data` (x, y, cond) give another family's trainer and batch (the GP
+    paths'); by default the GW run's (`train_gw.build_trainer`, fresh
+    waveforms drawn from `gen`)."""
     bf16 = dtype is not None
     loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL) if bf16
                             else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
-    space, wave = GWParameterSpace(), run_generator(summary)
-    theta = space.sample(TRAIN_BATCH, gen)
-    x, y, cond = make_eval_batch(theta, wave, space, summary.get("n_points", 256),
-                                 summary.get("mode", "time"))
-    cond = cond if summary["conditioned"] else None
+    if build is None:
+        def build(use_kernels):
+            return train_gw.build_trainer(summary, 1, "cuda", use_kernels=use_kernels, dtype=dtype)
+        space, wave = GWParameterSpace(), run_generator(summary)
+        theta = space.sample(TRAIN_BATCH, gen)
+        x, y, cond = make_eval_batch(theta, wave, space, summary.get("n_points", 256),
+                                     summary.get("mode", "time"))
+        cond = cond if summary["conditioned"] else None
+    else:
+        x, y, cond = data
     batch = None
     res = {}
     for label in ("kernel", "plain"):
-        trainer = train_gw.build_trainer(summary, 1, "cuda", use_kernels=label == "kernel" or bf16,
-                                         dtype=dtype)
+        trainer = build(label == "kernel" or bf16)
         trainer.model.load_state_dict(model.state_dict())
         if batch is None:
             batch = trainer.splitter(gen, x, y, condition=cond)
@@ -766,7 +857,7 @@ def check_train_step(model, summary, gen, dtype=None, term_scale=False):
     errs, zero = _step_grad_errs(grads_k, grads_p)
     over = [] if bf16 else [n for n, e in errs.items() if e > grad_rtol]
     if over:
-        draws = rounding_grads(summary, model.state_dict(), batch, over)
+        draws = rounding_grads(summary, model.state_dict(), batch, over, lambda: build(False))
         for n in over:
             scale = grads_p[n].abs().max().clamp_min(1e-30)
             reach = min((grads_k[n] - d[n]).abs().max() for d in draws) / scale
@@ -789,14 +880,18 @@ def check_train_step(model, summary, gen, dtype=None, term_scale=False):
     return loss_rel, errs[worst]
 
 
-def rounding_grads(summary, state, batch, names) -> list:
+def rounding_grads(summary, state, batch, names, build=None) -> list:
     """The float32 plain path's gradients of the parameters `names` on
     `batch` from the model state `state`, once for each of `ROUNDING_DRAWS`
     draws, with the outputs of the modules the kernels replace (both
     SetConvs and the decoder) multiplied by 1 + 2^-24 n, n standard normal:
     each output rounded apart by about half an ulp, as a kernel that sums
-    in another order rounds it."""
+    in another order rounds it. `build()` gives the plain path's trainer
+    (default `train_gw.build_trainer`'s)."""
     noise = torch.Generator(device="cuda").manual_seed(0)
+    if build is None:
+        def build():
+            return train_gw.build_trainer(summary, 1, "cuda", use_kernels=False)
 
     def round_apart(module, inputs, out):
         return out * (1.0 + 2.0 ** -24 * torch.randn(out.shape, generator=noise,
@@ -804,7 +899,7 @@ def rounding_grads(summary, state, batch, names) -> list:
 
     draws = []
     for _ in range(ROUNDING_DRAWS):
-        trainer = train_gw.build_trainer(summary, 1, "cuda", use_kernels=False)
+        trainer = build()
         trainer.model.load_state_dict(state)
         m = trainer.model
         hooks = [mod.register_forward_hook(round_apart)
@@ -823,20 +918,30 @@ def trace_replay(graph, tag="", expected=None):
     more is followed by another replay's, up to `TRACE_TRIES` in all: a
     trace lists what the profiler recorded, and it has left out a launch
     the replay made (a trace can add none); the caller's check fails
-    unless one trace lists `expected`."""
-    for attempt in range(TRACE_TRIES):
+    unless one trace lists `expected`. A trace that lists no kernel at all
+    is followed by another, up to `EMPTY_TRACE_TRIES` such traces."""
+    short_tries = empty_tries = 0
+    while True:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             graph.replay()
             torch.cuda.synchronize()
         per_replay = traced_launches(prof)
+        events = prof.key_averages()
+        n_kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
         print(f"one traced replay{tag}: wrapper launches (K1, K2, K3, K2-bf16, K3-bf16) "
-              f"{per_replay}; its hand kernels:")
-        for e in prof.key_averages():
+              f"{per_replay} among {n_kernels} traced kernels; its hand kernels:")
+        for e in events:
             if e.device_type == DeviceType.CUDA and hand_kernel_id(e.key) is not None:
                 print(f"   x{e.count} {e.key[:100]}")
+        if n_kernels == 0 and empty_tries < EMPTY_TRACE_TRIES:
+            empty_tries += 1
+            print("   (the trace recorded no kernel: tracing another replay)")
+            time.sleep(1.0)
+            continue
         short = expected is not None and per_replay != expected and all(
             p <= e for p, e in zip(per_replay, expected))
-        if not short or attempt == TRACE_TRIES - 1:
+        short_tries += 1
+        if not short or short_tries == TRACE_TRIES:
             return per_replay
         print(f"   (the trace lists fewer launches than {expected}: tracing another replay)")
 
@@ -859,7 +964,7 @@ def path_launches(name, counted, graph, calls, per_call):
     return dict(launches=launches, replays=replays, per_replay=per_replay)
 
 
-def check_graph_train(summary, dtype=None) -> dict:
+def check_graph_train(summary, dtype=None, recorded_trainer=None, expected=None) -> dict:
     """The train step captured in a CUDA graph against the eager step, two
     trainers from seed 0 (same init, same generator seed) in compute `dtype`
     on the run's data (`summary`: its waveforms, `n_points`, condition or
@@ -873,11 +978,17 @@ def check_graph_train(summary, dtype=None) -> dict:
     also be bit-identical (cuDNN runs deterministically here). ->
     {per_replay: launches (K1,
     K2, K3, K2-bf16, K3-bf16) of one replay, eager_step_ms: the eager
-    step's median, norms: the ten eager steps' norms before the clip}."""
+    step's median, norms: the ten eager steps' norms before the clip}.
+    Another family (the GP paths) gives `recorded_trainer()` -> (trainer,
+    sample, draws), whose sample and splitter append each step's draws to
+    `draws`, and the `expected` launches of one replay; it takes no
+    `train_steps_scanned` check."""
     bf16 = dtype is not None
     tag = " (bf16)" if bf16 else ""
     loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL) if bf16
                             else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
+    if recorded_trainer is not None:
+        return _graph_vs_eager(recorded_trainer, expected, tag, loss_rtol, grad_rtol)
     expected = path_call(summary, bf16, train=True)
     space, wave = GWParameterSpace(), run_generator(summary)
     n_points, conditioned = summary.get("n_points", 256), bool(summary["conditioned"])
@@ -905,6 +1016,13 @@ def check_graph_train(summary, dtype=None) -> dict:
         trainer.splitter = splitter
         return trainer, sample, draws
 
+    return _graph_vs_eager(recorded_trainer, expected, tag, loss_rtol, grad_rtol,
+                           lambda: check_scanned(summary, dtype, batch, conditioned, tag))
+
+
+def _graph_vs_eager(recorded_trainer, expected, tag, loss_rtol, grad_rtol, more=None) -> dict:
+    """`check_graph_train`'s checks on two trainers from `recorded_trainer()`;
+    `more()` runs before the traced replay."""
     (t_g, sample_g, draws_g), (t_e, sample_e, draws_e) = recorded_trainer(), recorded_trainer()
     graph = t_g.generated_graph(sample_g)
     graph.warm_up()
@@ -931,7 +1049,7 @@ def check_graph_train(summary, dtype=None) -> dict:
             and all(torch.equal(grads_g[n], grads_e[n]) for n in grads_e)
             and all(torch.equal(a, b) for a, b in zip(t_g.model.state_dict().values(),
                                                        t_e.model.state_dict().values())))
-    print(f"one graphed step vs one eager step{tag}: thetas and masks bit-identical "
+    print(f"one graphed step vs one eager step{tag}: draws and masks bit-identical "
           f"{draws_same}; loss {loss_g[0].item():.4f} vs {loss_e.item():.4f} (rel "
           f"{loss_rel:.3e}); {len(errs)} gradients, worst {errs[worst]:.3e} of its max magnitude "
           f"({worst}); BatchNorm-cancelled biases {zero[worst_zero]:.3e}; everything "
@@ -961,9 +1079,8 @@ def check_graph_train(summary, dtype=None) -> dict:
     if gaps.max() > GRAPH_STEPS_LOSS_RTOL or not bits10:
         raise AssertionError(f"{GRAPH_STEPS} graphed steps{tag} part from the eager steps")
 
-    # train_steps_scanned: the same steps on stacked batches made beforehand,
-    # each copied into the graph's inputs, against eager steps on them
-    check_scanned(summary, dtype, batch, conditioned, tag)
+    if more is not None:
+        more()
     per_replay = trace_replay(graph, tag, expected)
     if per_replay != expected:
         raise AssertionError(f"one replay{tag} launched {per_replay}, not {expected}")
@@ -1404,6 +1521,250 @@ def check_resume() -> None:
             print(f"resuming into the run's own directory refused: {e}")
         else:
             raise AssertionError("a resume into the run's own directory was not refused")
+
+
+def gp_recorded_trainer(summary):
+    """`check_graph_train`'s `recorded_trainer` for a GP configuration: a
+    trainer from seed 0 whose functions and context masks are kept."""
+    sampler = score_gp.samplers(summary["kernel"])[0]
+
+    def make():
+        trainer = train_gp.build_trainer(summary, 100, 1562, "cuda", seed=0)
+        draws, split = [], trainer.splitter
+
+        def sample(g):
+            x, y = sampler.sample(g, TRAIN_BATCH)
+            draws.append([x, y])
+            return x, y, None
+
+        def splitter(g, x, y, condition=None):
+            out = split(g, x, y, condition=condition)
+            draws[-1].append(out["mask_cntxt"])
+            return out
+
+        trainer.splitter = splitter
+        return trainer, sample, draws
+    return make
+
+
+def gp_call(summary) -> tuple:
+    """The launches (K1, K2, K3, K2-bf16, K3-bf16) one scoring batch of a GP
+    run makes: ConvCNP K1 twice and K2; ConvLNP K1 twice, three times where
+    an ELBO-trained run encodes its targets at eval."""
+    if summary["model"] == "ConvCNP":
+        return GP_SCORE_CALL["gp cnp"]
+    return GP_SCORE_CALL["gp elbo" if "_ELBOTrue" in summary["model"] else "gp npml"]
+
+
+@contextlib.contextmanager
+def no_graphs():
+    """Inside, `score_gp` scores every batch eagerly (a loop of `score_batch`)."""
+    saved = score_mod.GRAPH_MIN_REPLAYS
+    score_mod.GRAPH_MIN_REPLAYS = 10 ** 9
+    try:
+        yield
+    finally:
+        score_mod.GRAPH_MIN_REPLAYS = saved
+
+
+def check_gp_sampler(smi) -> dict:
+    """Phase 18: 4,096 functions of each GP kernel (and the All_Kernels
+    mixture) drawn on the card from seed 0, every value finite, x sorted in
+    [-1, 1]; each kernel's sample covariance at one fixed x within
+    `GP_MOMENT_SES` standard errors of the kernel's; the draw timed (host
+    clock, synchronised)."""
+    out = {}
+    for kernel in score_gp.KERNELS:
+        sampler = score_gp.samplers(kernel)[0]
+        g = torch.Generator(device="cuda").manual_seed(0)
+        sampler.sample(g, 32)  # the periodic sampler's coefficients, and warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, y = sampler.sample(g, GP_MOMENT_N)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(x).all())
+        ordered = bool((x[:, 1:] >= x[:, :-1]).all() and x.abs().max() <= 1.0)
+        z = (None if kernel == "All_Kernels" else
+             sample_covariance_z(sampler, GP_MOMENT_N, torch.Generator(device="cuda").manual_seed(1)))
+        print(f"GP sampler {kernel}: {GP_MOMENT_N} functions of {GP_POINTS} points in {ms:.2f} ms; "
+              f"finite {finite}, x sorted in [-1, 1] {ordered}; y std {y.std().item():.4f}"
+              + ("" if z is None else f"; sample covariance at a fixed x: largest error "
+                 f"{z:.2f} standard errors (bar {GP_MOMENT_SES})") + f"; {smi}")
+        if not (finite and ordered and (z is None or z <= GP_MOMENT_SES)):
+            raise AssertionError(f"the GP sampler {kernel} draws wrong functions")
+        out[kernel] = dict(ms=ms, z=z)
+    return out
+
+
+def check_gp_scores(smi) -> tuple:
+    """Phase 19: each of the 21 GP runs scored with `score_gp.score_run`
+    over 9,984 functions a kernel (29,952 for All_Kernels), every batch after
+    a kernel's first replayed from its CUDA graph, held to the band of the
+    JAX package's eval functions and splits scored by the port's forward
+    in float32 on the CPU (`tests/jax_bf16_family_gaps.json`; the records
+    were not made with the JAX package's float32 arithmetic,
+    `tests/jax_score_offsets.py`) and printed beside the record's band; the wrappers' counts at the eager
+    batches and the captures. For one run of each family (`GP_FAMILIES`):
+    the graphed scores against eager ones, the launches of a traced replay,
+    and a replay's time. -> ({family: `path_launches`}, {family: batch
+    ms})."""
+    misses, paths, batch_ms = [], {}, {}
+    for run_dir in GP_RUNS:
+        name = os.path.relpath(run_dir, RESULTS)
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            summary = json.load(f)
+        n_comp = len(score_gp.samplers(summary["kernel"])[1])
+        call = gp_call(summary)
+        reset_counts()
+        out = score_gp.score_run(run_dir, GP_N_TEST, "cuda")
+        counted = counts()
+        graphs = out["graphs"]
+        if not (len(graphs) == n_comp
+                and all(g.replays == GP_N_TEST // 256 - 1 for g in graphs)):
+            raise AssertionError(f"{name}: scored without a batch graph a kernel")
+        if counted != tuple(2 * n_comp * c for c in call):
+            raise AssertionError(f"{name}: wrapper launches {counted} at the eager batches and "
+                                 f"the captures, not {tuple(2 * n_comp * c for c in call)}")
+        if not (out["n"] == GP_N_TEST * n_comp and np.isfinite(out["ll"]).all()):
+            raise AssertionError(f"{name}: non-finite or missing per-function results")
+        lo, hi = BF16_GAPS[name]["f32_bands"]["mean_ll"]
+        r0, r1 = gp_band(run_dir)
+        inside = lo <= out["mean_ll"] <= hi
+        print(f"{name}: mean LL {out['mean_ll']:.3f} over {out['n']} in [{lo:.2f}, {hi:.2f}] "
+              f"(JAX's eval draws, the port's CPU forward, "
+              f"{BF16_GAPS[name]['f32']['mean_ll']:.3f}) {inside}; recorded "
+              f"{summary['mean_test_ll']:.2f}, its band [{r0:.2f}, {r1:.2f}]: inside "
+              f"{r0 <= out['mean_ll'] <= r1}; launches {counted}; {out['seconds']:.2f}s")
+        if not inside:
+            misses.append(name)
+        kind = GP_FAMILIES.get(run_dir)
+        if kind is not None:
+            graph = graphs[0]
+            paths[kind] = path_launches(f"{kind} scoring", counted, graph, 2, call)
+            t = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                graph.replay()
+                torch.cuda.synchronize()
+                t.append(time.perf_counter() - t0)
+            batch_ms[kind] = 1e3 * float(np.median(t))
+            reset_counts()
+            with no_graphs():
+                eager = score_gp.score_model(score_gp.load_model(run_dir, "cuda"),
+                                             summary["kernel"], GP_N_TEST, "cuda")
+            n_batches = GP_N_TEST // 256
+            if counts() != tuple(n_batches * c for c in call) or eager["graphs"]:
+                raise AssertionError(f"{name}: eager scoring launched {counts()}")
+            diff = np.abs(out["ll"] - eager["ll"]).max()
+            print(f"{name}: graphed against eager scoring, largest LL difference {diff:.3e} (bar "
+                  f"{GRAPH_LL_ATOL}); one batch replayed from its graph {batch_ms[kind]:.3f} ms "
+                  f"(median of 5, host clock), eager {1e3 * eager['seconds'] / n_batches:.3f} ms "
+                  "(mean)")
+            if diff > GRAPH_LL_ATOL:
+                raise AssertionError(f"{name}: graphed scoring differs from eager scoring")
+            del eager, graph
+        del out, graphs
+        release()
+    print(f"{len(GP_RUNS) - len(misses)} of {len(GP_RUNS)} GP runs inside the bands of JAX's eval "
+          f"draws through the port's CPU forward ({smi})")
+    if misses:
+        raise AssertionError(f"GP runs outside their bands: {', '.join(misses)}")
+    return paths, batch_ms
+
+
+def check_gp_batch(run_dir, smi) -> dict:
+    """Phase 19: one batch of 256 functions of a GP run on the kernel path
+    against the plain path, the functions, split and z draws from
+    generators seeded alike: loc and scale within `PATH_TOL`."""
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        kernel = json.load(f)["kernel"]
+    sampler = score_gp.samplers(kernel)[1][0]
+    outs = {}
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for label, use_kernels in (("kernel", True), ("plain", False)):
+            model = score_gp.load_model(run_dir, "cuda", use_kernels=use_kernels)
+            g = torch.Generator(device="cuda").manual_seed(1)
+            ll, o = score_gp.score_batch(model, score_gp.eval_splitter(), g, sampler)
+            outs[label] = (o.p_yCc.loc.clone(), o.p_yCc.scale.clone(), ll.clone())
+            del model, o
+    loc_err, scale_err, ll_err = ((a - b).abs().max().item()
+                                  for a, b in zip(outs["kernel"], outs["plain"]))
+    print(f"{os.path.relpath(run_dir, RESULTS)}: one batch of 256 x {outs['kernel'][0].shape[0]} "
+          f"draws, kernel vs plain path: loc {loc_err:.3e}, scale {scale_err:.3e}, LL "
+          f"{ll_err:.3e}; {smi}")
+    if not (loc_err <= PATH_TOL and scale_err <= PATH_TOL):
+        raise AssertionError(f"{run_dir}: the kernel path disagrees with the plain path")
+    return dict(loc_err=loc_err, scale_err=scale_err, ll_err=ll_err)
+
+
+def check_gp_family(name, summary, smi) -> dict:
+    """Phase 20, one GP training path (`GP_TRAIN`): the graphed step
+    against the eager one, bit for bit (`check_graph_train`); 1,000 graphed
+    steps at batch 32 from seed 0 (seeds 1 and 2 only while no draw has
+    met the bars), each draw's median loss over the first and the last 50
+    steps (`GP_FALL`, `GP_LEVEL`); one step of seed 0's trained model on the
+    kernel path against the plain path; the launches of a traced replay of
+    seed 0's graph. -> the path's numbers."""
+    call = GP_TRAIN_CALL[name]
+    release()
+    graph_train = check_graph_train(summary, recorded_trainer=gp_recorded_trainer(summary),
+                                    expected=call)
+    release()
+    sampler = score_gp.samplers(summary["kernel"])[0]
+
+    def sample(g):
+        return (*sampler.sample(g, TRAIN_BATCH), None)
+
+    draws = []
+    for seed in FAMILY_SEEDS:
+        trainer = train_gp.build_trainer(summary, 100, 1562, "cuda", seed=seed)
+        reset_counts()
+        chunks, chunk_s = [], []
+        t0 = time.perf_counter()
+        for _ in range(GP_TRAIN_STEPS // 50):
+            t1 = time.perf_counter()
+            chunks.append(trainer.train_steps_generated(sample, 50))
+            torch.cuda.synchronize()
+            chunk_s.append(time.perf_counter() - t1)
+        seconds = time.perf_counter() - t0
+        counted = counts()
+        (graph,) = trainer.graphs.values()
+        losses = torch.cat(chunks).cpu().numpy()
+        early, late = float(np.median(losses[:50])), float(np.median(losses[-50:]))
+        step_ms = 1e3 * float(np.median(chunk_s[1:])) / 50
+        met = early - late >= GP_FALL[name] and late <= GP_LEVEL[name]
+        print(f"{name}, seed {seed}: {GP_TRAIN_STEPS} graphed steps in {seconds:.2f}s, "
+              f"{graph.replays} replays; 50-step mean losses: "
+              + ", ".join(f"{v:.1f}" for v in losses.reshape(-1, 50).mean(axis=1)))
+        print(f"{name}, seed {seed}: median loss over the first 50 steps {early:.2f}, over the last "
+              f"50 {late:.2f} (fell {early - late:.2f} nats, bar {GP_FALL[name]:.0f}; level "
+              f"{GP_LEVEL[name]:.0f}) met {met}; graphed train step {step_ms:.3f} ms (chunks of "
+              f"50, host clock, synchronised), eager {graph_train['eager_step_ms']:.3f} ms; {smi}")
+        if graph.replays != GP_TRAIN_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}, seed {seed}: {graph.replays} replays, finite "
+                                 f"{np.isfinite(losses).all()}")
+        draws.append(dict(seed=seed, early=early, late=late, step_ms=step_ms, met=met))
+        if seed == FAMILY_SEEDS[0]:
+            first = (trainer, counted, graph)
+        else:
+            del trainer, graph
+            release()
+        if met:
+            break
+    if not any(d["met"] for d in draws):
+        raise AssertionError(f"{name}: the loss fell by {GP_FALL[name]} nats to {GP_LEVEL[name]} "
+                             "in no draw")
+    trainer, counted, graph = first
+    data = sample(torch.Generator(device="cuda").manual_seed(4))
+    check_train_step(trainer.model, summary, torch.Generator(device="cuda").manual_seed(4),
+                     term_scale=True, data=data,
+                     build=lambda use_kernels: train_gp.build_trainer(
+                         summary, 100, 1562, "cuda", use_kernels=use_kernels))
+    path = path_launches(f"{name} training", counted, graph, WARMUP_CALLS + 1, call)
+    return dict(path=path, step_ms=draws[0]["step_ms"], eager_step_ms=graph_train["eager_step_ms"],
+                draws=draws)
 
 
 def kernel_entry(name, source, replaces, launches, rows, path_shapes, launches_by_path):
@@ -1893,6 +2254,77 @@ def main() -> int:
     latent_batch = {LATENT_RUNS[r]: check_latent_batch(r, smi) for r in (LATENT_NPML, LATENT_ELBO)}
     release()
 
+    phase("GP kernels: K1, K2 and K3 at the GP paths' shapes (128 sorted U(-1, 1) points a "
+          "function, the 192-point grid) vs plain")
+    gp_models = {r: score_gp.load_model(r, "cuda") for r in (GP_CNP, GP_NPML, GP_ELBO, GP_NOTEBOOK)}
+
+    def gp_sig(run_dir, setconv_name):
+        return getattr(gp_models[run_dir], setconv_name).rbf.sigma().item()
+
+    def gp_k1(B, K, Q, C, sig, empty=(), max_real="all"):
+        return k1_inputs(B, K, Q, C, sig, gen, empty, max_real=max_real, n_points=GP_POINTS,
+                         uniform_points=True)
+
+    sig_ctx, sig_trgt = gp_sig(GP_CNP, "cntxt_to_induced"), gp_sig(GP_CNP, "induced_to_trgt")
+    sig_trgt_npml, sig_trgt_nb = (gp_sig(r, "induced_to_trgt") for r in (GP_NPML, GP_NOTEBOOK))
+    n_grid = gp_models[GP_CNP].n_induced
+    k1_rows += check_k1([
+        # context -> grid: U{0..50} of 128 points real, at a scoring batch and a train step
+        ("ctx->grid gp", gp_k1(256, GP_POINTS, n_grid, 1, sig_ctx, [0, 7], GP_CONTEXT)),
+        ("ctx->grid gp train", gp_k1(TRAIN_BATCH, GP_POINTS, n_grid, 1, sig_ctx, [0], GP_CONTEXT)),
+        # grid -> the 128 targets: ConvCNP's scoring batch and train step, the
+        # z draws folded into the batch (32 x 256 headline scoring, 16 x 256
+        # ablation scoring, 16 x 32 an NPML step)
+        ("grid->trgt gp", gp_k1(256, n_grid, GP_POINTS, 128, sig_trgt)),
+        ("grid->trgt gp train", gp_k1(TRAIN_BATCH, n_grid, GP_POINTS, 128, sig_trgt)),
+        ("grid->trgt gp npml", gp_k1(32 * 256, n_grid, GP_POINTS, 128, sig_trgt_npml)),
+        ("grid->trgt gp ablation", gp_k1(16 * 256, n_grid, GP_POINTS, 128, sig_trgt_nb)),
+        ("grid->trgt gp npml train", gp_k1(16 * TRAIN_BATCH, n_grid, GP_POINTS, 128,
+                                           sig_trgt_npml)),
+        # the ELBO-trained ablation runs' encoding of all 128 targets at eval
+        ("trgt->grid gp elbo", gp_k1(256, GP_POINTS, n_grid, 1,
+                                     gp_sig(GP_ELBO, "cntxt_to_induced"))),
+    ])
+    gdec = gp_models[GP_CNP].decoder.module
+    with torch.inference_mode():
+        gp_dec_w = tuple(t.detach().contiguous() for t in (
+            gdec.to_hidden.weight, gdec.to_hidden.bias,
+            torch.stack([gdec.linear_0.weight, gdec.linear_1.weight, gdec.linear_2.weight]),
+            torch.stack([gdec.linear_0.bias, gdec.linear_1.bias, gdec.linear_2.bias]),
+            gdec.out.weight, gdec.out.bias))
+        k2_rows += check_k2([
+            ("decoder gp", k2_inputs(256 * GP_POINTS, 128, 128, 3, 2, True, gen, gp_dec_w), False),
+            ("decoder gp train", k2_inputs(TRAIN_BATCH * GP_POINTS, 128, 128, 3, 2, True, gen,
+                                           gp_dec_w), False),
+        ])
+        k3_rows += check_k3([
+            ("decoder gp train", k3_inputs(TRAIN_BATCH * GP_POINTS, 128, 128, 3, 2, True, gen,
+                                           gp_dec_w[:5]), False),
+        ])
+    del gp_models, gdec, gp_dec_w
+    release()
+
+    phase(f"GP sampler on the card: {GP_MOMENT_N} functions of each kernel, their moments")
+    gp_sampler = check_gp_sampler(smi)
+
+    phase(f"the 21 GP runs: each scored over {GP_N_TEST} fresh functions a kernel, graphed, held to "
+          "the bands of JAX's eval draws through the port's CPU forward; one run of each family against eager scoring")
+    gp_score_paths, gp_batch_ms = check_gp_scores(smi)
+    phase("the GP paths: one batch of each family, kernel path vs plain path")
+    gp_batch = {GP_FAMILIES[r]: check_gp_batch(r, smi) for r in GP_FAMILIES}
+    release()
+
+    gp_families = {}
+    for name, gp_summary in GP_TRAIN:
+        phase(f"GP training path {name}: {gp_summary['model']} on {gp_summary['kernel']}, graphed "
+              f"against eager, {GP_TRAIN_STEPS} graphed steps from seeds {FAMILY_SEEDS}, kernel "
+              "path against plain")
+        gp_families[name] = check_gp_family(name, gp_summary, smi)
+    print(f"GP paths (host clock, synchronised; {smi}): " + json.dumps(
+        {"sampler": gp_sampler, "score_batch_ms": gp_batch_ms, "batch": gp_batch,
+         "train": {k: {m: f[m] for m in ("step_ms", "eager_step_ms", "draws")}
+                   for k, f in gp_families.items()}}))
+
     families = {}
     for name, run_dir, steps, seeds in FAMILY_RUNS:
         for dtype in (None, BF16):
@@ -1918,7 +2350,9 @@ def main() -> int:
                 f"{k.removesuffix(' bf16').replace(' ', '_')}": p
                 for k, p in {**long_paths, **latent_paths}.items()
                 if k.startswith(("freq", "latent"))},
-             **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in families.items()}}
+             **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in families.items()},
+             **{f"score_{k.replace(' ', '_')}": p for k, p in gp_score_paths.items()},
+             **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in gp_families.items()}}
     print(f"long-waveform batch times (host clock; {smi}): " + json.dumps(long_ms))
     print(f"latent batches, kernel vs plain path (host clock; {smi}): " + json.dumps(latent_batch))
 

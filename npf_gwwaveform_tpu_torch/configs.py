@@ -15,6 +15,15 @@ counterpart of `npf_gwwaveform_tpu/configs.py::gw_model_from_summary`, in
 float32 or bfloat16 compute; `gw_train_summary` states a training run's
 settings the way `experiments/reproduce_gw.py` records them (the flagship's
 by default), and `run_tag` names its directory as that script does.
+
+The 1-D GP benchmark's models (`experiments/reproduce_gp.py`) come from
+`gp_model_1d` (the notebooks' ConvCNP and ConvLNP: a 64-a-unit grid, so 192
+points on [-1.5, 1.5], five and four BatchNorm blocks, no conditioning) and
+`gp_model_variant` (the objective-ablation grid's ConvLNP, `variant_name`
+naming its directory); `gp_model_from_summary` rebuilds a GP run from its
+summary as `experiments/reeval.py` does, with the run's own BatchNorm eps.
+A GW loader refuses a GP run's summary (it has a `kernel` field) and the GP
+loader a GW run's.
 """
 
 from __future__ import annotations
@@ -23,14 +32,15 @@ from typing import Optional, Sequence
 
 import torch
 
-from .losses import BaseLossNPF, CNPFLoss, ELBOLossLNPF, NLLLossLNPF
+from .losses import BaseLossNPF, CNPFLoss, ELBOLossLNPF, NLLLossLNPF, SUMOLossLNPF
 from .models.convnp import ConvCNP, ConvLNP
 
 R_DIM = 128
 
 __all__ = ["gw_model_from_summary", "gw_train_summary", "run_tag", "train_config", "CONFIG_KEYS",
            "R_DIM", "STEPS_PER_EPOCH", "MODELS", "gp_criterion", "criterion_from_summary",
-           "default_clip"]
+           "default_clip", "gp_model_1d", "gp_model_variant", "variant_name", "parse_variant",
+           "gp_model_from_summary", "gp_criterion_from_summary", "is_gp_summary"]
 
 # the model families the port builds
 MODELS = ("ConvCNP", "ConvLNP")
@@ -62,6 +72,9 @@ def gw_model_from_summary(summary: dict, use_kernels: bool = True,
     sigmoid`; with `train_loss_objective="elbo"` it samples from q(z|C,T)
     where targets are given, one draw in training.
     """
+    if is_gp_summary(summary):
+        raise ValueError(f"a GP run's summary (kernel={summary['kernel']!r}): rebuild it with "
+                         "configs.gp_model_from_summary (score_gp.load_model)")
     arch = summary.get("cnn_arch", "cnn")
     dilations = summary.get("cnn_dilations") or None
     cond = bool(summary.get("conditioned"))
@@ -90,6 +103,110 @@ def gw_model_from_summary(summary: dict, use_kernels: bool = True,
              if summary.get("no_lat_lb") else {})
     return ConvLNP(cnn_n_blocks=4, is_global=True, is_q_zCct=elbo,
                    n_z_samples_train=1 if elbo else 16, n_z_samples_test=32, **scale, **common)
+
+
+def is_gp_summary(summary: dict) -> bool:
+    """Whether a summary is a GP run's (`reproduce_gp.py` records its kernel)."""
+    return "kernel" in summary
+
+
+def gp_model_1d(name: str, r_dim: int = R_DIM, dtype: Optional[torch.dtype] = None,
+                cnn_kernel_size: int = 19, cnn_norm_eps: float = 1e-3,
+                use_kernels: bool = True) -> ConvCNP:
+    """The 1-D GP benchmark's model, as the JAX package's `gp_model_1d`
+    builds it: ConvCNP (five blocks, the MLP decoder through K2) or ConvLNP
+    (four blocks in both grid CNNs, `is_global`, NPML with 16 z draws in
+    training and 32 in eval, a linear decoder), each on a grid of 64 points
+    a unit, BatchNorm eps `cnn_norm_eps`. The set and attention families
+    raise NotImplementedError (ROADMAP queue 1, item 7)."""
+    common = dict(x_dim=1, y_dim=1, r_dim=r_dim, density_induced=64,
+                  cnn_kernel_size=cnn_kernel_size, cnn_norm="batch", cnn_n_conv_layers=2,
+                  cnn_norm_eps=cnn_norm_eps, use_kernels=use_kernels, dtype=dtype)
+    if name == "ConvCNP":
+        return ConvCNP(cnn_n_blocks=5, **common)
+    if name == "ConvLNP":
+        return ConvLNP(cnn_n_blocks=4, is_global=True, is_q_zCct=False, n_z_samples_train=16,
+                       n_z_samples_test=32, **common)
+    if name in ("CNP", "LNP", "AttnCNP", "AttnLNP"):
+        raise NotImplementedError(f"model={name!r} not ported yet (ROADMAP queue 1, item 7)")
+    raise ValueError(name)
+
+
+def gp_model_variant(name: str, is_elbo: bool, is_lat_lb: bool, is_sig_lb: bool,
+                     r_dim: int = R_DIM, dtype: Optional[torch.dtype] = None,
+                     cnn_norm_eps: float = 1e-3, headline_arch: bool = False,
+                     use_kernels: bool = True) -> ConvLNP:
+    """The objective-ablation grid's ConvLNP, as the JAX package's
+    `gp_model_variant` builds it: the ELBO from q(z|C,T) with one draw in
+    training (`is_elbo`) or NPML with 16; 16 draws in eval; `min_sigma_pred`
+    0.01 (`is_sig_lb`) or 1e-4; the q(z) scale 0.1 + 0.9 sigmoid
+    (`is_lat_lb`) or 1e-4 + softplus. The "notebook" architecture has z_dim
+    16 (`reshaper_z` maps it to r_dim) and no global latent; the headline
+    one (`headline_arch`) keeps z_dim = r_dim and the global latent. Both
+    decode linearly."""
+    if name != "ConvLNP":
+        raise NotImplementedError(f"the {name} ablation variants are not ported yet "
+                                  "(ROADMAP queue 1, item 7)")
+    scale = {} if is_lat_lb else dict(lat_scale_transform="softplus", min_lat_sigma=1e-4)
+    arch = {} if headline_arch else dict(z_dim=16, is_global=False)
+    return ConvLNP(x_dim=1, y_dim=1, r_dim=r_dim, density_induced=64, cnn_kernel_size=19,
+                   cnn_norm="batch", cnn_n_conv_layers=2, cnn_norm_eps=cnn_norm_eps,
+                   cnn_n_blocks=4, use_kernels=use_kernels, dtype=dtype,
+                   **{"is_global": True, **arch}, is_q_zCct=is_elbo,
+                   n_z_samples_train=1 if is_elbo else 16, n_z_samples_test=16,
+                   min_sigma_pred=0.01 if is_sig_lb else 1e-4, **scale)
+
+
+def variant_name(name: str, is_elbo: bool, is_lat_lb: bool, is_sig_lb: bool) -> str:
+    """The ablation run's directory name (Losses.ipynb's `get_name`)."""
+    return f"{name}_ELBO{is_elbo}_LatLB{is_lat_lb}_SigLB{is_sig_lb}"
+
+
+def parse_variant(run_name: str) -> tuple:
+    """`variant_name`'s inverse: "ConvLNP_ELBOTrue_LatLBFalse_SigLBTrue" ->
+    ("ConvLNP", {"ELBO": True, "LatLB": False, "SigLB": True})."""
+    base, *parts = run_name.split("_")
+    flags = {}
+    for part in parts:
+        val = part.endswith("True")
+        flags[part[: -len("True" if val else "False")]] = val
+    if set(flags) != {"ELBO", "LatLB", "SigLB"}:
+        raise ValueError(f"not an ablation variant's name: {run_name!r}")
+    return base, flags
+
+
+def gp_model_from_summary(summary: dict, use_kernels: bool = True,
+                          dtype: Optional[torch.dtype] = None) -> ConvCNP:
+    """A GP run's model as `experiments/reeval.py` rebuilds it: the ablation
+    variant its name encodes (`{model}_ELBO*_LatLB*_SigLB*`, the architecture
+    its `ablation_arch` records, "notebook" when absent), the SUMO run's
+    NPML variant (`{model}_SUMO`: headline scale bounds, notebook
+    architecture), or the family's `gp_model_1d`; BatchNorm eps the
+    summary's `norm_eps` (1e-3 when absent). A GW run's summary is refused."""
+    if not is_gp_summary(summary):
+        raise ValueError("not a GP run's summary (no `kernel`): rebuild a GW run with "
+                         "configs.gw_model_from_summary (score.load_model)")
+    name, eps = summary["model"], summary.get("norm_eps", 1e-3)
+    kw = dict(cnn_norm_eps=eps, use_kernels=use_kernels, dtype=dtype)
+    if "_ELBO" in name:
+        base, flags = parse_variant(name)
+        return gp_model_variant(base, flags["ELBO"], flags["LatLB"], flags["SigLB"],
+                                headline_arch=summary.get("ablation_arch") == "headline", **kw)
+    if name.endswith("_SUMO"):
+        return gp_model_variant(name[: -len("_SUMO")], False, True, True, **kw)
+    return gp_model_1d(name, **kw)
+
+
+def gp_criterion_from_summary(summary: dict) -> BaseLossNPF:
+    """A GP run's training objective, as `reproduce_gp.py` picks it: the
+    ELBO or NPML of an ablation variant, SUMO for `{model}_SUMO`, else the
+    family's (`gp_criterion`)."""
+    name = summary["model"]
+    if "_ELBO" in name:
+        return ELBOLossLNPF() if parse_variant(name)[1]["ELBO"] else NLLLossLNPF()
+    if name.endswith("_SUMO"):
+        return SUMOLossLNPF()
+    return gp_criterion(name)
 
 
 def gp_criterion(name: str) -> BaseLossNPF:

@@ -10,12 +10,38 @@ from typing import Callable
 
 import torch
 
-__all__ = ["get_all_indcs", "GetRandomIndcs", "exact_topn_mask", "CntxtTrgtSplitter"]
+__all__ = ["get_all_indcs", "get_range_indcs", "GetIndcsMerger", "GetRandomIndcs",
+           "exact_topn_mask", "CntxtTrgtSplitter"]
 
 
 def get_all_indcs(generator, batch_size: int, n_points: int) -> torch.Tensor:
     """Every point selected."""
     return torch.ones((batch_size, n_points), dtype=torch.bool, device=generator.device)
+
+
+def get_range_indcs(arange):
+    """A mask sampler selecting every index in [lo, hi)."""
+
+    def sampler(generator, batch_size: int, n_points: int) -> torch.Tensor:
+        idx = torch.arange(n_points, device=generator.device)
+        mask = (idx >= arange[0]) & (idx < arange[1])
+        return mask[None].expand(batch_size, n_points)
+
+    return sampler
+
+
+@dataclass(frozen=True)
+class GetIndcsMerger:
+    """The union of several mask samplers' masks, each drawing from the
+    generator in turn."""
+
+    samplers: tuple
+
+    def __call__(self, generator, batch_size: int, n_points: int) -> torch.Tensor:
+        out = self.samplers[0](generator, batch_size, n_points)
+        for s in self.samplers[1:]:
+            out = out | s(generator, batch_size, n_points)
+        return out
 
 
 def exact_topn_mask(scores: torch.Tensor, n_indcs: torch.Tensor, static_ub: int,

@@ -125,17 +125,21 @@ def k3_bound(x, g, w0, b0, wh, bh, wout):
 
 
 def k1_inputs(B, K, Q, C, sigma, gen, empty_rows=(), path=True, max_real=None,
-              n_points=256):
+              n_points=256, uniform_points=False):
     """(keys, queries, values, mask, sigma) of one SetConv forward on the card:
     keys and queries on a scoring path's grids when `path` (`n_points`
     context points on [-1, 1]: 256 on the flagship path, 2048 on the long
     waveforms'; any other size is the induced grid on [-1.5, 1.5]), else
     sorted random keys and random queries; U{0..max_real} real keys per row
     (default K; "all": every key, as the grid->targets SetConv's mask); the
-    given rows empty."""
+    given rows empty. With `uniform_points` the `n_points` side is a GP
+    path's: each row's points sorted U(-1, 1), not evenly spaced."""
     dev = "cuda"
     if path:
         def grid(n):
+            if n == n_points and uniform_points:
+                return torch.sort(torch.rand((B, n), generator=gen, device=dev) * 2 - 1,
+                                  dim=-1).values
             half = 1.0 if n == n_points else 1.5
             return linspace(-half, half, n, device=dev)[None].expand(B, n).contiguous()
         keys, queries = grid(K), grid(Q)

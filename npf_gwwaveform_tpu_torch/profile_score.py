@@ -16,8 +16,10 @@ busy share (device time over the traced batch's wall time, and over the
 untraced median) and the kernels with the most device time; for the graph
 also how many kernels one replay launched and the hand kernels among them,
 and how many replays pay for the capture (`score.GRAPH_MIN_REPLAYS`). Then
-one JSON line with both. `--bf16` scores in bfloat16 compute. Writes
-nothing.
+one JSON line with both. `--bf16` scores in bfloat16 compute. A GP run
+(its summary has a `kernel`) scores one batch of 256 fresh functions of its
+first kernel (`score_gp.score_batch`, the sampling inside the batch and its
+graph), float32 only. Writes nothing.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import time
 
 import torch
 
+from . import score_gp
+from .configs import is_gp_summary
 from .data.gw import GWParameterSpace
 from .kernel_measure import event_ms, hand_kernels, measure_step, top_kernels
 from .score import (
@@ -50,22 +54,41 @@ def main(argv=None) -> dict:
     dtype = torch.bfloat16 if args.bf16 else None
     with open(os.path.join(args.run_dir, "summary.json")) as f:
         summary = json.load(f)
-    model = load_model(args.run_dir, "cuda", dtype=dtype)
-    gen, space = run_generator(summary), GWParameterSpace()
-    splitter, n_points = eval_splitter(summary["n_context"]), summary.get("n_points", 256)
-    mode = summary.get("mode", "time")
-    theta = torch.from_numpy(read_run_thetas(args.run_dir)[:256]).cuda()
-
     g = torch.Generator(device="cuda")
+    if is_gp_summary(summary):
+        if dtype is not None:
+            raise SystemExit("profile_score: no GP bf16 (ROADMAP queue 1, item 6b)")
+        model = score_gp.load_model(args.run_dir, "cuda")
+        sampler, splitter = score_gp.samplers(summary["kernel"])[1][0], score_gp.eval_splitter()
+        theta = None  # the batch graph takes no input: it samples its functions
+
+        def run_batch(gen_):
+            return score_gp.score_batch(model, splitter, gen_, sampler)
+
+        def make_graph(gen_):
+            return score_gp.batch_graph(model, splitter, gen_, sampler)
+    else:
+        model = load_model(args.run_dir, "cuda", dtype=dtype)
+        gen, space = run_generator(summary), GWParameterSpace()
+        splitter, n_points = eval_splitter(summary["n_context"]), summary.get("n_points", 256)
+        mode = summary.get("mode", "time")
+        theta = torch.from_numpy(read_run_thetas(args.run_dir)[:256]).cuda()
+
+        def run_batch(gen_):
+            return score_batch(model, splitter, gen_, theta, gen, space, n_points, mode)
+
+        def make_graph(gen_):
+            return batch_graph(model, splitter, gen_, theta, gen, space, n_points, mode)
+    inputs = () if theta is None else (theta,)
 
     def one_batch():
-        score_batch(model, splitter, g.manual_seed(0), theta, gen, space, n_points, mode)
+        run_batch(g.manual_seed(0))
         torch.cuda.synchronize()
 
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         eager = measure_step(one_batch, args.reps)
         # after eager batches, as `score_run` makes it
-        graph = batch_graph(model, splitter, g.manual_seed(0), theta, gen, space, n_points, mode)
+        graph = make_graph(g.manual_seed(0))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         graph.capture()
@@ -73,11 +96,11 @@ def main(argv=None) -> dict:
         capture_ms = 1e3 * (time.perf_counter() - t0)
 
         def replay():
-            graph.replay(theta)
+            graph.replay(*inputs)
             torch.cuda.synchronize()
 
         graphed = measure_step(replay, args.reps)
-        graphed["event_ms"] = event_ms(lambda: graph.replay(theta))
+        graphed["event_ms"] = event_ms(lambda: graph.replay(*inputs))
     graphed["capture_ms"] = capture_ms
     # score_run's choice: a graph pays when its replays save more than its capture costs
     graphed["replays_to_pay"] = capture_ms / (eager["wall_ms"] - graphed["wall_ms"])

@@ -22,8 +22,10 @@ prints the step's wall time, the device time (the traced kernels' sum), the
 busy share (device time over the traced step's wall time, and over the
 untraced median) and the kernels with the most device time; for the graph
 also how many kernels one replay launched and the hand kernels among them.
-Then one JSON line with both. `--bf16` trains in bfloat16 compute. Writes
-nothing.
+Then one JSON line with both. `--bf16` trains in bfloat16 compute. A GP
+run's `--run-dir` (its summary has a `kernel`) profiles its `train_gp`
+configuration: `--batch` fresh functions of its kernel a step, sampled
+inside the step, float32 only. Writes nothing.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import record_function
 
-from .configs import gw_train_summary, train_config
+from . import score_gp, train_gp
+from .configs import gw_train_summary, is_gp_summary, train_config
 from .kernel_measure import event_ms, hand_kernels, measure_step, top_kernels
 from .train_gw import batch_sampler, build_trainer
 from .utils.helpers import set_numerics
@@ -57,13 +60,24 @@ def main(argv=None) -> dict:
         raise SystemExit("profile_train: no CUDA device")
     set_numerics()
     dtype = torch.bfloat16 if args.bf16 else None
-    if args.run_dir is None:
-        summary = gw_train_summary()
-    else:
+    record = {}
+    if args.run_dir is not None:
         with open(os.path.join(args.run_dir, "summary.json")) as f:
-            summary = train_config(json.load(f))
-    trainer = build_trainer(summary, 200_000, "cuda", dtype=dtype)
-    sample = batch_sampler(summary, args.batch)
+            record = json.load(f)
+    if is_gp_summary(record):
+        if dtype is not None:
+            raise SystemExit(f"profile_train: no GP bf16 ({train_gp.GP_BF16_ITEM})")
+        summary = {k: record[k] for k in ("model", "kernel", "epochs", "norm_eps", "init",
+                                          "ablation_arch") if k in record}
+        trainer = train_gp.build_trainer(summary, 100, 1562, "cuda")
+        sampler = score_gp.samplers(summary["kernel"])[0]
+
+        def sample(g):
+            return (*sampler.sample(g, args.batch), None)
+    else:
+        summary = train_config(record) if record else gw_train_summary()
+        trainer = build_trainer(summary, 200_000, "cuda", dtype=dtype)
+        sample = batch_sampler(summary, args.batch)
     g = trainer.state.generator
 
     def one_step():

@@ -15,7 +15,10 @@ bootstrap resamples of 1024 of them (drawn from seed 0) (half the 2048, which wi
 interval by about sqrt(2)), widened again by half its half-width on each
 side. For the flagship run this gives [883.9, 905.5] and [0.00143, 0.00300];
 `chip_smoke.py` holds that run to the rounder [885, 905] and [0.0016,
-0.0030] it has used since the run was first scored.
+0.0030] it has used since the run was first scored. After a blank line it
+prints every conv-family GP run (`gp_runs`): its recorded mean LL over its
+`eval.csv` and the band by the same rule at half their count (9,984 ->
+4,992 resampled), LL only (`gp_band`).
 
 `history` prints, at steps 10,000, 50,000, 100,000, 150,000 and 200,000,
 the 50-step train loss that ends there and the mean over the 1,000 steps
@@ -28,10 +31,12 @@ import argparse
 import glob
 import json
 import os
+from typing import Optional
 
 import numpy as np
 
-__all__ = ["recorded_scores", "bands_of", "score_bands", "scored_runs", "history_at", "main"]
+__all__ = ["recorded_scores", "bands_of", "score_bands", "gp_band", "gp_runs", "scored_runs",
+           "history_at", "main"]
 
 N_BOOT, N_RESAMPLE, QUANTILE, WIDEN, BOOT_SEED = 10_000, 1024, 0.99, 0.5, 0
 HISTORY_STEPS, HISTORY_WINDOW = (10_000, 50_000, 100_000, 150_000, 200_000), 1000
@@ -45,14 +50,18 @@ def recorded_scores(run_dir: str) -> tuple:
     return ll, mm
 
 
-def bands_of(ll: np.ndarray, mm: np.ndarray) -> dict:
+def bands_of(ll: np.ndarray, mm: Optional[np.ndarray] = None,
+             n_resample: int = N_RESAMPLE) -> dict:
     """{"mean_ll": (lo, hi), "median_mismatch": (lo, hi)}: each statistic's
-    99% bootstrap interval at 1024 of the per-waveform values, widened by
-    half its half-width on each side."""
-    idx = np.random.default_rng(BOOT_SEED).integers(0, ll.shape[0], (N_BOOT, N_RESAMPLE))
+    99% bootstrap interval at `n_resample` of the per-waveform values (1024,
+    half a GW run's 2048), widened by half its half-width on each side;
+    without `mm` (a GP run) the LL's only."""
+    idx = np.random.default_rng(BOOT_SEED).integers(0, ll.shape[0], (N_BOOT, n_resample))
+    stats = [("mean_ll", ll[idx].mean(axis=1))]
+    if mm is not None:
+        stats.append(("median_mismatch", np.median(mm[idx], axis=1)))
     out = {}
-    for name, stat in (("mean_ll", ll[idx].mean(axis=1)),
-                       ("median_mismatch", np.median(mm[idx], axis=1))):
+    for name, stat in stats:
         lo, hi = np.quantile(stat, [(1 - QUANTILE) / 2, (1 + QUANTILE) / 2])
         half = (hi - lo) / 2
         out[name] = (float(lo - WIDEN * half), float(hi + WIDEN * half))
@@ -62,6 +71,21 @@ def bands_of(ll: np.ndarray, mm: np.ndarray) -> dict:
 def score_bands(run_dir: str) -> dict:
     """`bands_of` the run's recorded scores."""
     return bands_of(*recorded_scores(run_dir))
+
+
+def gp_band(run_dir: str) -> tuple:
+    """A GP run's mean-LL band: `bands_of` its recorded per-function
+    log-likelihoods at half their count (9,984 -> 4,992)."""
+    ll = np.loadtxt(os.path.join(run_dir, "eval.csv"), delimiter=",", ndmin=1)
+    return bands_of(ll, n_resample=ll.shape[0] // 2)["mean_ll"]
+
+
+def gp_runs(results: str = "results") -> list:
+    """The conv-family GP run directories under `results` that hold
+    parameters (the five kernels and `All_Kernels`; ConvCNP, ConvLNP and
+    the ConvLNP ablation grid), sorted."""
+    return sorted(os.path.dirname(p) for p in glob.glob(
+        os.path.join(results, "*_Kernel*", "Conv*", "run_*", "params.msgpack")))
 
 
 def scored_runs(results: str = "results", model: str = "ConvCNP") -> list:
@@ -105,6 +129,14 @@ def main(argv=None) -> None:
             (l0, l1), (m0, m1) = bands["mean_ll"], bands["median_mismatch"]
             print(f"| `{os.path.relpath(run_dir, args.results)}` | {ll.mean():.2f} | "
                   f"[{l0:.2f}, {l1:.2f}] | {np.median(mm):.5f} | [{m0:.5f}, {m1:.5f}] |")
+        print()
+        print("| GP run | Functions | Recorded mean LL | LL band |")
+        print("| --- | --- | --- | --- |")
+        for run_dir in gp_runs(args.results):
+            ll = np.loadtxt(os.path.join(run_dir, "eval.csv"), delimiter=",", ndmin=1)
+            l0, l1 = gp_band(run_dir)
+            print(f"| `{os.path.relpath(run_dir, args.results)}` | {ll.shape[0]} | "
+                  f"{ll.mean():.2f} | [{l0:.2f}, {l1:.2f}] |")
         return
     hist = {}
     for key in ("run", "ref"):

@@ -1,3 +1,7 @@
-from .helpers import linspace, masked_mean, masked_softmax, masked_sum, sum_from_nth_dim
+from .helpers import (
+    linspace, masked_mean, masked_softmax, masked_sum, rescale_range, sum_from_nth_dim,
+)
+from .predict import SamplePredictor
 
-__all__ = ["linspace", "masked_mean", "masked_softmax", "masked_sum", "sum_from_nth_dim"]
+__all__ = ["SamplePredictor", "linspace", "masked_mean", "masked_softmax", "masked_sum",
+           "rescale_range", "sum_from_nth_dim"]

@@ -9,6 +9,14 @@ import torch
 NEG_INF = -1e30
 
 
+def rescale_range(x, old_range, new_range):
+    """Linearly rescale x from old_range = (lo, hi) to new_range, with the
+    JAX helper's operations in its order."""
+    old_min, old_max = old_range
+    new_min, new_max = new_range
+    return (x - old_min) * (new_max - new_min) / (old_max - old_min) + new_min
+
+
 def sum_from_nth_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum all dims from `dim` onward (none when dim == t.ndim: torch's sum
     over an empty dim tuple would reduce everything)."""

@@ -43,6 +43,25 @@ package's float32 and bf16 scores on the CPU, so the port's float32
 rescoring is held to the JAX package's own), into `--out` as JSON, and
 prints one line a run.
 
+With `--gp` (or GP run directories in `--runs`) it scores the conv-family
+GP runs (`run_report.gp_runs`) in float32 only, as `reproduce_gp.py` draws
+its eval set (kernel component c's batch i of 256 functions from
+`fold_in(k_data, i)`, folded with c from the second component on, its split
+and z keys from `k_split`), at least `--n` functions a run in whole batches
+split evenly over its components (2,304 for `All_Kernels` at 2,048;
+`--n-gp-cnp`, 9,984, for a ConvCNP run, cheap on the CPU), in chunks of
+`--latent-batch` (each chunk its own z key), and writes each run's
+`f32_bands` ({"mean_ll": band}, `run_report.bands_of` at half the count):
+the records were not made with the JAX package's float32 arithmetic
+(`tests/jax_score_offsets.py`: on the records' own draws JAX scores one to
+ten nats a function above them), so `chip_smoke.py` holds the port's GP
+rescorings to these bands and prints the records' beside. The functions
+and splits are the JAX package's eval draws; the forward is the port's on
+the CPU (`gp_f32`), which equals the JAX package's on identical inputs to
+0.08 nats a function: XLA's CPU depthwise convolutions would take hours a
+latent run. `--shard i/k` takes every k-th GP run from the i-th, for k
+processes side by side (each writes `--out` with its runs only).
+
 XLA's excess precision is turned off (`--xla_allow_excess_precision=false`)
 so that every bf16 op under jit rounds its result, as the ops read and as
 the port computes (tests/test_torch_bf16_slice.py).
@@ -189,6 +208,52 @@ def gap(run_dir, n, batch, n_bf16=None):
             "d_ll_mean": float(d.mean()), "d_ll_std": float(d.std())}
 
 
+def gp_f32(run_dir, n, chunk):
+    """A GP run's float32 scores over at least `n` functions, whole batches
+    of 256 split evenly over its components (module docstring) -> its
+    entry. The functions and context masks are the JAX package's eval
+    draws; the forward is the port's on the CPU (z drawn from a CPU
+    generator seeded by the batch): XLA's CPU depthwise convolutions take
+    minutes a batch at 32 z draws, and on identical inputs the port is the
+    JAX package to 0.08 nats a function (tests/test_torch_gp_runs.py,
+    tests/jax_score_offsets.py)."""
+    import torch
+
+    from npf_gwwaveform_tpu.data.gp import KERNEL_CONFIGS, GPSampler
+    from npf_gwwaveform_tpu_torch import score_gp
+    from npf_gwwaveform_tpu_torch.losses import npml_loss
+
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    comps = score_gp.ALL_KERNELS if summary["kernel"] == "All_Kernels" else (summary["kernel"],)
+    model = score_gp.load_model(run_dir, "cpu")
+    splitter = CntxtTrgtSplitter(contexts_getter=GetRandomIndcs(a=0.0, b=50, is_indep_n=True),
+                                 targets_getter=get_all_indcs)
+    k_data, k_split = jax.random.split(jax.random.PRNGKey(123))
+    lls = []
+    for c, name in enumerate(comps):
+        sampler = GPSampler(n_points=128, **KERNEL_CONFIGS[name])
+        kd = k_data if c == 0 else jax.random.fold_in(k_data, c)
+        ks = k_split if c == 0 else jax.random.fold_in(k_split, c)
+        for i in range(-(-n // (256 * len(comps)))):
+            x, y = sampler.sample(jax.random.fold_in(kd, i), 256)
+            k_sp, _ = jax.random.split(jax.random.fold_in(ks, i))
+            mask_c = splitter(k_sp, x, y)["mask_cntxt"]
+            g = torch.Generator().manual_seed(1000 * c + i)
+            x, y, mask_c = (torch.from_numpy(np.array(a)) for a in (x, y, mask_c))
+            for j in range(0, 256, chunk):
+                xs, ys, ms = x[j:j + chunk], y[j:j + chunk], mask_c[j:j + chunk]
+                with torch.no_grad():
+                    out = model(xs, ys, xs, ms, torch.ones_like(ms), y_trgt=ys, generator=g)
+                    lls.append(-npml_loss(out, ys, torch.ones_like(ms), use_iw=False)
+                               .double().numpy())
+    ll = np.concatenate(lls)
+    lo, hi = bands_of(ll, n_resample=ll.shape[0] // 2)["mean_ll"]
+    return {"n": int(ll.shape[0]), "batch": chunk, "gp": True,
+            "f32": {"mean_ll": float(ll.mean()), "std_ll": float(ll.std())},
+            "f32_bands": {"mean_ll": [lo, hi]}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=2048)
@@ -199,7 +264,19 @@ def main() -> None:
     ap.add_argument("--out", default=os.path.join(ROOT, "tests", "jax_bf16_family_gaps.json"))
     ap.add_argument("--runs", nargs="*", default=None,
                     help="run dirs (default: every GW ConvCNP run with parameters)")
+    ap.add_argument("--gp", action="store_true", help="every conv-family GP run, float32")
+    ap.add_argument("--shard", default=None, help="i/k: every k-th GP run from the i-th")
+    ap.add_argument("--n-gp-cnp", type=int, default=9984,
+                    help="functions a GP ConvCNP run (cheap on the CPU); a GP ConvLNP run "
+                         "takes --n")
     args = ap.parse_args()
+    if args.gp:
+        from npf_gwwaveform_tpu_torch.run_report import gp_runs
+
+        args.runs = gp_runs(RESULTS)
+        if args.shard:
+            i, k = (int(v) for v in args.shard.split("/"))
+            args.runs = args.runs[i::k]
     runs = args.runs or sorted(
         os.path.dirname(p) for model in ("ConvCNP", "ConvLNP") for p in glob.glob(
             os.path.join(RESULTS, "GW_*", model, "run_*", "params.msgpack"))
@@ -212,6 +289,14 @@ def main() -> None:
         name = os.path.relpath(os.path.abspath(run_dir), RESULTS)
         with open(os.path.join(run_dir, "summary.json")) as f:
             summary = json.load(f)
+        if "kernel" in summary:  # a GP run: float32 only
+            n = args.n_gp_cnp if summary["model"] == "ConvCNP" else args.n
+            out[name] = gp_f32(run_dir, n, args.latent_batch)
+            print(f"{name}: n {out[name]['n']}, f32 mean LL {out[name]['f32']['mean_ll']:.3f}, "
+                  f"band {out[name]['f32_bands']['mean_ll']}", flush=True)
+            with open(args.out, "w") as f:
+                json.dump(dict(sorted(out.items())), f, indent=1)
+            continue
         if summary["model"] == "ConvLNP":
             out[name] = gap(run_dir, args.n, args.latent_batch, args.n_latent_bf16)
         elif summary.get("duration", 1.0) != 1.0:

@@ -16,6 +16,25 @@ MLP-chain kernel (Pallas, interpret mode on the CPU), the model the port's
 kernel path matches. Run bf16 with
 `XLA_FLAGS=--xla_allow_excess_precision=false` for the op-by-op rounding the
 port follows (tests/test_torch_bf16_slice.py).
+
+    JAX_PLATFORMS=cpu python tests/jax_reference_training.py --gp cnp|npml|notebook
+        [--seed 0] [--steps 1000] [--banded] [--losses-out FILE]
+
+trains instead a GP configuration of `experiments/reproduce_gp.py` on RBF
+functions, as that script builds it with its defaults (BatchNorm eps 1e-3,
+the intended init, Adam 1e-3 decaying x10 over 100 epochs of 1,562 steps,
+clip 1.0 for ConvLNP, contexts of U{0..50} of 128 points, batch 32, the
+functions sampled inside the jitted step): `cnp` the ConvCNP, `npml` the
+headline ConvLNP (NPML, 16 draws), `notebook` the ablation's
+`ConvLNP_ELBOFalse_LatLBFalse_SigLBFalse`. It prints the 50-step means and
+then the medians over the first and the last 50 steps as one JSON line: the
+fall bars `chip_smoke.py` holds the port's 1,000 graphed steps to.
+`--banded` lowers the depthwise convolutions to the JAX package's banded
+matmuls (`cnn_banded`: the same parameters and linear map), which XLA runs
+several times faster on the CPU than its grouped convolutions; the ConvLNP
+bars come from such runs (about 6-8 s a step on four cores).
+`--losses-out FILE` appends each step's loss to FILE as it comes (a ConvLNP
+step takes seconds here, so a long run is read while it goes).
 """
 
 import argparse
@@ -36,13 +55,68 @@ from npf_gwwaveform_tpu.data import (  # noqa: E402
 from npf_gwwaveform_tpu.training import Trainer, create_train_state, make_optimizer  # noqa: E402
 
 
+def gp_main(args) -> None:
+    """The GP configuration's training (module docstring)."""
+    from npf_gwwaveform_tpu.configs import gp_model_variant
+    from npf_gwwaveform_tpu.data.gp import KERNEL_CONFIGS, GPSampler
+    from npf_gwwaveform_tpu.losses import NLLLossLNPF
+
+    batch = 32
+    sampler = GPSampler(n_points=128, **KERNEL_CONFIGS["RBF_Kernel"])
+    name = "ConvCNP" if args.gp == "cnp" else "ConvLNP"
+    if args.gp == "notebook":
+        model, criterion = gp_model_variant("ConvLNP", False, False, False), NLLLossLNPF()
+    else:
+        model, criterion = gp_model_1d(name), gp_criterion(name)
+    if args.banded:  # the same model with the banded-matmul depthwise lowering
+        model = model.clone(CNNFactory=gp_model_1d(name, cnn_banded=True).CNNFactory)
+    splitter = CntxtTrgtSplitter(contexts_getter=GetRandomIndcs(a=0.0, b=50),
+                                 targets_getter=get_all_indcs)
+    tx = make_optimizer(lr=1e-3, decay_lr=10.0, max_epochs=100, steps_per_epoch=1562,
+                        grad_clip_norm=None if args.gp == "cnp" else 1.0)
+    trainer = Trainer(model, criterion, tx, splitter=splitter)
+    key = jax.random.PRNGKey(args.seed)
+    x0, y0 = sampler.sample(key, batch)
+    state = create_train_state(model, tx, splitter(key, x0, y0), seed=args.seed)
+
+    @jax.jit
+    def one_step(state, k):
+        x, y = sampler.sample(k, batch)
+        state, metrics = trainer._train_step(state, x, y)
+        return state, metrics["loss"]
+
+    losses = []
+    for i, k in enumerate(jax.random.split(jax.random.PRNGKey(1000 + args.seed), args.steps)):
+        state, loss = one_step(state, k)
+        losses.append(float(loss))
+        if args.losses_out:
+            with open(args.losses_out, "a") as f:
+                f.write(f"{losses[-1]!r}\n")
+        if (i + 1) % 50 == 0:
+            print(f"{i + 1} mean of the last 50: {np.mean(losses[-50:]):.1f}", flush=True)
+    print(json.dumps(dict(gp=args.gp, seed=args.seed, steps=args.steps,
+                          means_50=[float(np.mean(losses[i:i + 50]))
+                                    for i in range(0, args.steps, 50)],
+                          median_first_50=float(np.median(losses[:50])),
+                          median_last_50=float(np.median(losses[-50:])))))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--steps", type=int, default=500)
+    ap.add_argument("--steps", type=int, default=None, help="500, or 1,000 with --gp")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--fused-mlp", action="store_true")
+    ap.add_argument("--gp", default=None, choices=("cnp", "npml", "notebook"))
+    ap.add_argument("--banded", action="store_true",
+                    help="with --gp, the depthwise convs as banded matmuls (cnn_banded)")
+    ap.add_argument("--losses-out", default=None, metavar="FILE",
+                    help="with --gp, append each step's loss to FILE as it comes")
     args = ap.parse_args()
+    if args.gp is not None:
+        args.steps = args.steps or 1000
+        return gp_main(args)
+    args.steps = args.steps or 500
     batch, n_points = 32, 256
     gen, space = GWWaveformGenerator(duration=1.0, sample_rate=1024.0), GWParameterSpace()
     dtype = jnp.bfloat16 if args.bf16 else None

@@ -28,6 +28,16 @@ package on the record's draws against the record (what the recording
 device's arithmetic adds) and the port against the JAX package on the same
 draws (what the port adds).
 
+A GP run (`results/*_Kernel*/Conv*/run_*`, its summary has a `kernel`) is
+rescored the way `reproduce_gp.py` scored it: kernel component c's batch i
+of 256 functions from `fold_in(k_data, i)` (`k_data` folded with c from the
+second component of `All_Kernels` on) and its split and z key from
+`fold_in(k_split`, ...), `k_data, k_split = split(PRNGKey(123))`; the JAX
+package on the CPU (the model rebuilt as `reeval.py` does) and the port on
+the same functions, masks and z noise, in `--chunk` functions a pass. It
+prints the record's mean LL over the same rows of `eval.csv` beside JAX's,
+JAX against the record per function, and the port against JAX.
+
 A ConvLNP run (NPML at 32 z draws, the ELBO run from q(z|C,T)) is scored on
 the record's own z draws too: the latent key of each batch of 256
 (`reproduce_gw.py`'s third split of the batch key) gives JAX's draws for the
@@ -92,6 +102,7 @@ def _stats(ll, mm, mz=None):
 
 # the noise JAX's NormalDiag.sample returns while it is replaced (a latent run)
 _EPS = []
+_SAMPLE = jax_distributions.NormalDiag.sample
 
 
 def _sample_given_eps(self, key, sample_shape=()):
@@ -118,6 +129,92 @@ def latent_draws(jm, variables, x, y, mask_c, cond, key, conditioned):
         q.scale, np.float64)
 
 
+def jax_gp_model(summary):
+    """A GP run's JAX model as `experiments/reeval.py` rebuilds it."""
+    from npf_gwwaveform_tpu.configs import gp_model_1d, gp_model_variant
+    from npf_gwwaveform_tpu_torch.configs import parse_variant
+
+    name, norm_eps = summary["model"], summary.get("norm_eps", 1e-3)
+    if "_ELBO" in name:
+        base, flags = parse_variant(name)
+        return gp_model_variant(base, flags["ELBO"], flags["LatLB"], flags["SigLB"],
+                                cnn_norm_eps=norm_eps,
+                                headline_arch=summary.get("ablation_arch") == "headline")
+    return gp_model_1d(name, cnn_norm_eps=norm_eps)
+
+
+def gp_main(args, summary) -> None:
+    """The GP rescoring (module docstring)."""
+    from npf_gwwaveform_tpu.data.gp import KERNEL_CONFIGS, GPSampler
+    from npf_gwwaveform_tpu_torch import score_gp
+
+    comps = score_gp.ALL_KERNELS if summary["kernel"] == "All_Kernels" else (summary["kernel"],)
+    samplers = [GPSampler(n_points=128, **KERNEL_CONFIGS[k]) for k in comps]
+    splitter = CntxtTrgtSplitter(contexts_getter=GetRandomIndcs(a=0.0, b=50, is_indep_n=True),
+                                 targets_getter=get_all_indcs)
+    jm = jax_gp_model(summary)
+    variables = {"params": _restore(os.path.join(args.run, "params.msgpack")),
+                 **_restore(os.path.join(args.run, "extra_vars.msgpack"))}
+    latent = summary["model"].startswith("ConvLNP")
+
+    @jax.jit
+    def jax_forward(x, y, mask_c, eps):
+        _EPS[:] = [eps]
+        mask_t = jnp.ones(mask_c.shape, bool)
+        out = jm.apply(variables, x, y, x, y, mask_cntxt=mask_c, mask_trgt=mask_t, train=False,
+                       rngs={"latent": jax.random.PRNGKey(0)})
+        return -JaxCNPFLoss(reduction=None)(out, y, mask_t, train=False)
+
+    tm = score_gp.load_model(args.run, "cpu")
+    rec = np.loadtxt(os.path.join(args.run, "eval.csv"), delimiter=",")
+    per_comp = rec.shape[0] // len(comps)
+    k_data, k_split = jax.random.split(jax.random.PRNGKey(123))
+    lls = {"record": [], "jax": [], "port": []}
+    for c, sampler in enumerate(samplers):
+        kd = k_data if c == 0 else jax.random.fold_in(k_data, c)
+        ks = k_split if c == 0 else jax.random.fold_in(k_split, c)
+        for i in range(args.n // EVAL_BATCH):
+            x, y = sampler.sample(jax.random.fold_in(kd, i), EVAL_BATCH)
+            k_sp, k_lat = jax.random.split(jax.random.fold_in(ks, i))
+            mask_c = splitter(k_sp, x, y)["mask_cntxt"]
+            eps = None
+            if latent:  # JAX's own draws, then its forward on their noise
+                jax_distributions.NormalDiag.sample = _SAMPLE
+                eps = latent_draws(jm, variables, x, y, mask_c, None, k_lat, False)
+                jax_distributions.NormalDiag.sample = _sample_given_eps
+            x, y, mask_c = (np.asarray(a) for a in (x, y, mask_c))
+            for j in range(0, EVAL_BATCH, args.chunk):
+                sl = slice(j, j + args.chunk)
+                e = None if eps is None else eps[:, sl]
+                lls["jax"].append(np.asarray(jax_forward(
+                    x[sl], y[sl], mask_c[sl], None if e is None else jnp.asarray(e, jnp.float32)),
+                    np.float64))
+                xt, yt, mt = (torch.from_numpy(np.ascontiguousarray(a[sl])) for a in (x, y, mask_c))
+                with torch.no_grad():
+                    out = tm(xt, yt, xt, mt, torch.ones_like(mt), y_trgt=yt,
+                             eps=None if e is None else torch.from_numpy(e).float())
+                    lls["port"].append(-CNPFLoss(reduction=None)(
+                        out, yt, torch.ones_like(mt), train=False).double().numpy())
+            lls["record"].append(rec[c * per_comp + i * EVAL_BATCH:
+                                     c * per_comp + (i + 1) * EVAL_BATCH])
+            print(f"component {c} ({comps[c]}) batch {i}: record "
+                  f"{lls['record'][-1].mean():.4f}, JAX {np.concatenate(lls['jax'][-EVAL_BATCH // args.chunk:]).mean():.4f}",
+                  flush=True)
+    rec_ll, jax_ll, port_ll = (np.concatenate(lls[k]) for k in ("record", "jax", "port"))
+    d_rec, d_port = jax_ll - rec_ll, port_ll - jax_ll
+    out = {"run": args.run, "n": int(rec_ll.shape[0]), "record_mean_ll": float(rec_ll.mean()),
+           "jax_mean_ll": float(jax_ll.mean()), "port_mean_ll": float(port_ll.mean()),
+           "jax_vs_record": {"d_ll_mean": float(d_rec.mean()), "d_ll_std": float(d_rec.std()),
+                             "d_ll_max_abs": float(np.abs(d_rec).max()),
+                             "d_ll_median_abs": float(np.median(np.abs(d_rec)))},
+           "port_vs_jax": {"d_ll_max_abs": float(np.abs(d_port).max()),
+                           "d_ll_max_rel": float((np.abs(d_port) / np.abs(jax_ll)).max())}}
+    print(json.dumps(out))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--run", required=True, metavar="RUN_DIR")
@@ -129,6 +226,8 @@ def main() -> None:
     torch.set_num_threads(4)
     with open(os.path.join(args.run, "summary.json")) as f:
         summary = json.load(f)
+    if "kernel" in summary:
+        return gp_main(args, summary)
     n_points, n_context = summary.get("n_points", 256), summary["n_context"]
     gen = GWWaveformGenerator(duration=summary.get("duration", 1.0), sample_rate=1024.0)
     space = GWParameterSpace()

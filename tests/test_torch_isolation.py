@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 RUN_DIR = os.path.join(REPO, "results", "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1")
 
-_BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "npf_gwwaveform_tpu")
+_BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "scipy", "h5py", "npf_gwwaveform_tpu")
 
 _ISOLATED = f"""
 import sys

@@ -47,7 +47,12 @@ def test_history_at_takes_the_entry_and_its_window():
 def test_main_prints_a_table(cmd, tmp_path, capsys):
     if cmd == "bands":
         run_report.main(["bands", "--results", RESULTS])
-        n_rows = 21 + 4  # the ConvCNP runs, then the four ConvLNP runs
+        # the GW ConvCNP runs, then the four GW ConvLNP runs; then, after a
+        # blank line, the 21 conv-family GP runs (their LL bands only)
+        tables = capsys.readouterr().out.strip().split("\n\n")
+        assert [len(t.splitlines()) for t in tables] == [2 + 21 + 4, 2 + 21]
+        assert all(line.startswith("|") for t in tables for line in t.splitlines())
+        return
     else:
         with open(tmp_path / "history.json", "w") as f:
             json.dump([{"step": s, "train_loss": -1.0} for s in range(50, 50_001, 50)], f)
