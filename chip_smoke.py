@@ -6,7 +6,8 @@ NVIDIA H100.
 
 Phases, each announced with the seconds elapsed:
   1. device: the card's name and power limit, torch and nvcc versions;
-  2. build: the kernels with one nvcc call (ptxas resource report);
+  2. build: the kernels, one nvcc a source started together and one link
+     (ptxas resource report);
   3. K1 (SetConv forward) against its plain version at the two path shapes of
      the scoring batch and of the train step, with the paths' own masks
      (U{0..192} of 256 context points real, every grid point real), at the
@@ -183,7 +184,29 @@ Phases, each announced with the seconds elapsed:
      bars from the JAX package's own runs (`GP_FALL`, `GP_LEVEL`), one
      step on the kernel path against the plain path, and a traced replay's
      launches (K1 x2, K2, K3; K1 x2).
-Phases 17-20 run after phase 16's scoring and before phase 14's training
+ 21. the set and attention family's kernels (after phase 17): K2 at the
+     decoder's z-folded rows with the RBF runs' own weights, a scoring
+     batch of 256 functions (CNP 32,768 rows, AttnLNP's 8 draws 262,144,
+     LNP's 32 draws 1,048,576) and a train step of 32 (4,096; the NPML
+     variants 131,072 for LNP and 32,768 for AttnLNP), K3 at the train
+     rows, each at phases 4-5's bars, two launches bit-identical;
+ 22. the 57 set and attention GP runs in `results/` (CNP, LNP, AttnCNP and
+     AttnLNP of every kernel and All_Kernels, the LNP and AttnLNP ablation
+     grids, LNP_SUMO; after phase 19): each scored as phase 19 scores the
+     conv family, K2 once a batch, at the run's own z draws (32 LNP, 8
+     AttnLNP), within the band of the JAX package's eval draws through the
+     port's CPU forward, the record's band printed beside; for one RBF run
+     of each family the graphed scores against eager ones, the launches of
+     a traced replay (K2) and one batch on the kernel path against the
+     plain path;
+ 23. the set family's training configurations of `reproduce_gp.py` (CNP,
+     LNP, AttnCNP, AttnLNP, the NPML ablation variant
+     `AttnLNP_ELBOFalse_LatLBFalse_SigLBFalse`, `LNP_SUMO`; after phase
+     20), each checked as phase 20 checks the conv family (graphed against
+     eager bit for bit, 1,000 graphed steps from seed 0 held to bars from
+     the JAX package's own runs, one step on the kernel path against the
+     plain path, a traced replay's launches: K2 and K3).
+Phases 17-23 run after phase 16's scoring and before phase 14's training
 loop. It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -208,7 +231,9 @@ from torch.profiler import ProfilerActivity, profile
 from npf_gwwaveform_tpu_torch import _build
 from npf_gwwaveform_tpu_torch import score as score_mod
 from npf_gwwaveform_tpu_torch import score_gp, train_gp, train_gw
-from npf_gwwaveform_tpu_torch.configs import gw_model_from_summary, gw_train_summary, train_config
+from npf_gwwaveform_tpu_torch.configs import (
+    SET_MODELS, gw_model_from_summary, gw_train_summary, train_config,
+)
 from npf_gwwaveform_tpu_torch.data.gp import sample_covariance_z
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.kernel_measure import (
@@ -224,7 +249,7 @@ from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
 )
 from npf_gwwaveform_tpu_torch.ops.kernels.setconv import setconv_exprbf_fwd, setconv_exprbf_plain
 from npf_gwwaveform_tpu_torch.run_report import (
-    gp_band, gp_runs, recorded_scores, score_bands, scored_runs,
+    gp_band, gp_runs, gp_set_runs, recorded_scores, score_bands, scored_runs,
 )
 from npf_gwwaveform_tpu_torch.score import (
     batch_graph, eval_splitter, load_model, make_eval_batch, read_run_thetas, run_generator,
@@ -469,6 +494,45 @@ GP_SCORE_CALL = {"gp cnp": (2, 1, 0, 0, 0), "gp npml": (2, 0, 0, 0, 0),
 GP_TRAIN_CALL = {"gp cnp": (2, 1, 1, 0, 0), "gp npml": (2, 0, 0, 0, 0),
                  "gp notebook": (2, 0, 0, 0, 0)}
 
+# ---- the set and attention family's GP paths (phases 21-23): the 57 runs
+# of CNP, LNP, AttnCNP and AttnLNP (the five kernels and All_Kernels, the
+# LNP and AttnLNP ablation grids, LNP_SUMO); no SetConv, the decoder the
+# MLP chain on the z draws folded into the rows: K2 in every forward, K3 in
+# every step, at n_z x B x 128 rows
+SET_RUNS = tuple(gp_set_runs(RESULTS))
+assert len(SET_RUNS) == 57, SET_RUNS
+SET_CNP, SET_LNP, SET_ATTNCNP, SET_ATTNLNP = (os.path.join(RESULTS, "RBF_Kernel", m, "run_0")
+                                              for m in SET_MODELS)
+# one run of each family checked in depth (as GP_FAMILIES)
+SET_FAMILIES = {SET_CNP: "set cnp", SET_LNP: "set lnp", SET_ATTNCNP: "set attncnp",
+                SET_ATTNLNP: "set attnlnp"}
+SET_SCORE_CALL = (0, 1, 0, 0, 0)  # K2 once a scoring batch
+# phase 23: the set family's training configurations of reproduce_gp.py
+# (its defaults; CNP, LNP and AttnLNP with NPVI, AttnCNP; an NPML ablation
+# variant, AttnLNP's at 8 draws; SUMO on LNP's NPML variant at 32 draws),
+# 1,000 graphed steps at batch 32 on RBF functions from seed 0 (seeds 1-2
+# fallbacks), held to bars from the JAX package's own 1,000-step runs on
+# the CPU by phase 20's rule (tests/jax_reference_training.py --gp NAME,
+# seed 0: half JAX's fall from the median over the first 50 steps to the
+# median over the last 50, and a last median at or below JAX's plus 50
+# nats; the medians in PERF.md section 6)
+SET_TRAIN = (
+    ("set cnp", train_gp.train_summary("CNP")),
+    ("set lnp", train_gp.train_summary("LNP")),
+    ("set attncnp", train_gp.train_summary("AttnCNP")),
+    ("set attnlnp", train_gp.train_summary("AttnLNP")),
+    ("set attnlnp npml", train_gp.train_summary("AttnLNP",
+                                                ablation="ELBOFalse_LatLBFalse_SigLBFalse")),
+    ("set lnp sumo", train_gp.train_summary("LNP", loss="sumo")),
+)
+# (JAX's median over the first 50 steps, over the last 50), seed 0
+SET_JAX_MEDIANS = {"set cnp": (173.71, 143.69), "set lnp": (183.92, 158.24),
+                   "set attncnp": (177.13, 69.02), "set attnlnp": (176.33, 50.83),
+                   "set attnlnp npml": (169.18, 57.51), "set lnp sumo": (170.44, 144.19)}
+GP_FALL.update({k: round((a - b) / 2, 1) for k, (a, b) in SET_JAX_MEDIANS.items()})
+GP_LEVEL.update({k: round(b + 50.0, 1) for k, (a, b) in SET_JAX_MEDIANS.items()})
+GP_TRAIN_CALL.update({name: (0, 1, 1, 0, 0) for name, _ in SET_TRAIN})
+
 _T0 = time.perf_counter()
 
 
@@ -505,6 +569,17 @@ def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def chain_weights(mlp) -> tuple:
+    """(w0, b0, wh, bh, wout, bout) of a decoder MLP of three hidden-to-hidden
+    layers, detached and contiguous: the chain K2 and K3 take."""
+    hidden = [mlp.linear_0, mlp.linear_1, mlp.linear_2]
+    with torch.no_grad():
+        return tuple(t.detach().contiguous() for t in (
+            mlp.to_hidden.weight, mlp.to_hidden.bias,
+            torch.stack([h.weight for h in hidden]), torch.stack([h.bias for h in hidden]),
+            mlp.out.weight, mlp.out.bias))
 
 
 def check_k1(cases):
@@ -787,7 +862,7 @@ def _step_grad_errs(grads, ref):
     for n in filter(_bn_cancelled, ref):
         scale = ref[n.rsplit(".", 2)[0] + ".pointwise.weight"].abs().max().clamp_min(1e-30)
         zero[n] = (max(grads[n].abs().max(), ref[n].abs().max()) / scale).item()
-    return errs, zero
+    return errs, zero or {"(a model without BatchNorm)": 0.0}
 
 
 def check_train_step(model, summary, gen, dtype=None, term_scale=False, build=None, data=None):
@@ -886,8 +961,9 @@ def rounding_grads(summary, state, batch, names, build=None) -> list:
     draws, with the outputs of the modules the kernels replace (both
     SetConvs and the decoder) multiplied by 1 + 2^-24 n, n standard normal:
     each output rounded apart by about half an ulp, as a kernel that sums
-    in another order rounds it. `build()` gives the plain path's trainer
-    (default `train_gw.build_trainer`'s)."""
+    in another order rounds it (a set or attention model: its decoder).
+    `build()` gives the plain path's trainer (default
+    `train_gw.build_trainer`'s)."""
     noise = torch.Generator(device="cuda").manual_seed(0)
     if build is None:
         def build():
@@ -902,8 +978,9 @@ def rounding_grads(summary, state, batch, names, build=None) -> list:
         trainer = build()
         trainer.model.load_state_dict(state)
         m = trainer.model
-        hooks = [mod.register_forward_hook(round_apart)
-                 for mod in (m.cntxt_to_induced, m.induced_to_trgt, m.decoder)]
+        hooks = [getattr(m, name).register_forward_hook(round_apart)
+                 for name in ("cntxt_to_induced", "induced_to_trgt", "decoder")
+                 if hasattr(m, name)]
         trainer.loss_and_grads(batch)
         for h in hooks:
             h.remove()
@@ -1550,7 +1627,10 @@ def gp_recorded_trainer(summary):
 def gp_call(summary) -> tuple:
     """The launches (K1, K2, K3, K2-bf16, K3-bf16) one scoring batch of a GP
     run makes: ConvCNP K1 twice and K2; ConvLNP K1 twice, three times where
-    an ELBO-trained run encodes its targets at eval."""
+    an ELBO-trained run encodes its targets at eval; the set and attention
+    family K2 once."""
+    if summary["model"].split("_")[0] in SET_MODELS:
+        return SET_SCORE_CALL
     if summary["model"] == "ConvCNP":
         return GP_SCORE_CALL["gp cnp"]
     return GP_SCORE_CALL["gp elbo" if "_ELBOTrue" in summary["model"] else "gp npml"]
@@ -1597,20 +1677,21 @@ def check_gp_sampler(smi) -> dict:
     return out
 
 
-def check_gp_scores(smi) -> tuple:
-    """Phase 19: each of the 21 GP runs scored with `score_gp.score_run`
-    over 9,984 functions a kernel (29,952 for All_Kernels), every batch after
-    a kernel's first replayed from its CUDA graph, held to the band of the
-    JAX package's eval functions and splits scored by the port's forward
-    in float32 on the CPU (`tests/jax_bf16_family_gaps.json`; the records
-    were not made with the JAX package's float32 arithmetic,
-    `tests/jax_score_offsets.py`) and printed beside the record's band; the wrappers' counts at the eager
-    batches and the captures. For one run of each family (`GP_FAMILIES`):
+def check_gp_scores(runs, families, smi) -> tuple:
+    """Phases 19 and 21: each GP run of `runs` scored with
+    `score_gp.score_run` over 9,984 functions a kernel (29,952 for
+    All_Kernels), every batch after a kernel's first replayed from its CUDA
+    graph, held to the band of the JAX package's eval functions and splits
+    scored by the port's forward in float32 on the CPU
+    (`tests/jax_bf16_family_gaps.json`; the records were not made with the
+    JAX package's float32 arithmetic, `tests/jax_score_offsets.py`) and
+    printed beside the record's band; the wrappers' counts at the eager
+    batches and the captures. For one run of each family (`families`):
     the graphed scores against eager ones, the launches of a traced replay,
     and a replay's time. -> ({family: `path_launches`}, {family: batch
     ms})."""
     misses, paths, batch_ms = [], {}, {}
-    for run_dir in GP_RUNS:
+    for run_dir in runs:
         name = os.path.relpath(run_dir, RESULTS)
         with open(os.path.join(run_dir, "summary.json")) as f:
             summary = json.load(f)
@@ -1638,7 +1719,7 @@ def check_gp_scores(smi) -> tuple:
               f"{r0 <= out['mean_ll'] <= r1}; launches {counted}; {out['seconds']:.2f}s")
         if not inside:
             misses.append(name)
-        kind = GP_FAMILIES.get(run_dir)
+        kind = families.get(run_dir)
         if kind is not None:
             graph = graphs[0]
             paths[kind] = path_launches(f"{kind} scoring", counted, graph, 2, call)
@@ -1667,7 +1748,7 @@ def check_gp_scores(smi) -> tuple:
             del eager, graph
         del out, graphs
         release()
-    print(f"{len(GP_RUNS) - len(misses)} of {len(GP_RUNS)} GP runs inside the bands of JAX's eval "
+    print(f"{len(runs) - len(misses)} of {len(runs)} GP runs inside the bands of JAX's eval "
           f"draws through the port's CPU forward ({smi})")
     if misses:
         raise AssertionError(f"GP runs outside their bands: {', '.join(misses)}")
@@ -1765,6 +1846,44 @@ def check_gp_family(name, summary, smi) -> dict:
     path = path_launches(f"{name} training", counted, graph, WARMUP_CALLS + 1, call)
     return dict(path=path, step_ms=draws[0]["step_ms"], eager_step_ms=graph_train["eager_step_ms"],
                 draws=draws)
+
+
+def check_set_kernels(gen) -> dict:
+    """Phase 22 (c): K2 and K3 at the set and attention family's decoder
+    rows with the RBF runs' own decoder weights (C = H = 128, L1 = 3, O =
+    2): K2 at a scoring batch of 256 functions of 128 points (CNP and
+    AttnCNP one draw, 32,768 rows; AttnLNP 8 draws, 262,144; LNP 32 draws,
+    1,048,576, the largest row count the chain has met: M * C = 1.3e8 <
+    2^31, each thread's row offsets in range) and at a train step of 32
+    (4,096; the NPML variants at 32 x 128 x 32 = 131,072 for LNP and x 8 =
+    32,768 for AttnLNP), K3 at the train steps' rows; each at phases 4-5's
+    bars, two launches bit-identical. -> {"K2": rows, "K3": rows}."""
+    w = {m: chain_weights(score_gp.load_model(run, "cuda").decoder.module)
+         for m, run in (("cnp", SET_CNP), ("lnp", SET_LNP), ("attnlnp", SET_ATTNLNP))}
+    rows = 256 * GP_POINTS
+    train = TRAIN_BATCH * GP_POINTS
+    with torch.inference_mode():
+        k2 = check_k2([
+            ("decoder set cnp", k2_inputs(rows, 128, 128, 3, 2, True, gen, w["cnp"]), False),
+            ("decoder set attnlnp", k2_inputs(8 * rows, 128, 128, 3, 2, True, gen, w["attnlnp"]),
+             False),
+            ("decoder set lnp", k2_inputs(32 * rows, 128, 128, 3, 2, True, gen, w["lnp"]), False),
+            ("decoder set cnp train", k2_inputs(train, 128, 128, 3, 2, True, gen, w["cnp"]),
+             False),
+            ("decoder set lnp npml train", k2_inputs(32 * train, 128, 128, 3, 2, True, gen,
+                                                     w["lnp"]), False),
+            ("decoder set attnlnp npml train", k2_inputs(8 * train, 128, 128, 3, 2, True, gen,
+                                                         w["attnlnp"]), False),
+        ])
+        k3 = check_k3([
+            ("decoder set cnp train", k3_inputs(train, 128, 128, 3, 2, True, gen,
+                                                w["cnp"][:5]), False),
+            ("decoder set lnp npml train", k3_inputs(32 * train, 128, 128, 3, 2, True, gen,
+                                                     w["lnp"][:5]), False),
+            ("decoder set attnlnp npml train", k3_inputs(8 * train, 128, 128, 3, 2, True, gen,
+                                                         w["attnlnp"][:5]), False),
+        ])
+    return {"K2": k2, "K3": k3}
 
 
 def kernel_entry(name, source, replaces, launches, rows, path_shapes, launches_by_path):
@@ -1891,28 +2010,10 @@ def main() -> int:
     ])
 
     phase("K2 mlp_chain_fwd vs plain")
-    dec = model.decoder.module
-    dec_w = (dec.to_hidden.weight, dec.to_hidden.bias,
-             torch.stack([dec.linear_0.weight, dec.linear_1.weight, dec.linear_2.weight]),
-             torch.stack([dec.linear_0.bias, dec.linear_1.bias, dec.linear_2.bias]),
-             dec.out.weight, dec.out.bias)
-    ldec = long_model.decoder.module
-    long_dec_w = (ldec.to_hidden.weight, ldec.to_hidden.bias,
-                  torch.stack([ldec.linear_0.weight, ldec.linear_1.weight, ldec.linear_2.weight]),
-                  torch.stack([ldec.linear_0.bias, ldec.linear_1.bias, ldec.linear_2.bias]),
-                  ldec.out.weight, ldec.out.bias)
-    freq_dec_w = {}
-    for run, m in freq_models.items():
-        d = m.decoder.module
-        freq_dec_w[run] = (d.to_hidden.weight, d.to_hidden.bias,
-                           torch.stack([d.linear_0.weight, d.linear_1.weight, d.linear_2.weight]),
-                           torch.stack([d.linear_0.bias, d.linear_1.bias, d.linear_2.bias]),
-                           d.out.weight, d.out.bias)
+    dec_w = chain_weights(model.decoder.module)
+    long_dec_w = chain_weights(long_model.decoder.module)
+    freq_dec_w = {run: chain_weights(m.decoder.module) for run, m in freq_models.items()}
     with torch.inference_mode():
-        dec_w = tuple(t.detach().contiguous() for t in dec_w)
-        long_dec_w = tuple(t.detach().contiguous() for t in long_dec_w)
-        freq_dec_w = {run: tuple(t.detach().contiguous() for t in w)
-                      for run, w in freq_dec_w.items()}
         # the frequency-domain decoders' cases (O = 4), (name, M, weights):
         # the scoring batch's rows and the train step's, each run's weights
         freq_dec = [(f"decoder {FREQ_RUNS[run]}{tag}", M, w) for run, w in freq_dec_w.items()
@@ -2285,13 +2386,8 @@ def main() -> int:
         ("trgt->grid gp elbo", gp_k1(256, GP_POINTS, n_grid, 1,
                                      gp_sig(GP_ELBO, "cntxt_to_induced"))),
     ])
-    gdec = gp_models[GP_CNP].decoder.module
+    gp_dec_w = chain_weights(gp_models[GP_CNP].decoder.module)
     with torch.inference_mode():
-        gp_dec_w = tuple(t.detach().contiguous() for t in (
-            gdec.to_hidden.weight, gdec.to_hidden.bias,
-            torch.stack([gdec.linear_0.weight, gdec.linear_1.weight, gdec.linear_2.weight]),
-            torch.stack([gdec.linear_0.bias, gdec.linear_1.bias, gdec.linear_2.bias]),
-            gdec.out.weight, gdec.out.bias))
         k2_rows += check_k2([
             ("decoder gp", k2_inputs(256 * GP_POINTS, 128, 128, 3, 2, True, gen, gp_dec_w), False),
             ("decoder gp train", k2_inputs(TRAIN_BATCH * GP_POINTS, 128, 128, 3, 2, True, gen,
@@ -2301,7 +2397,14 @@ def main() -> int:
             ("decoder gp train", k3_inputs(TRAIN_BATCH * GP_POINTS, 128, 128, 3, 2, True, gen,
                                            gp_dec_w[:5]), False),
         ])
-    del gp_models, gdec, gp_dec_w
+    del gp_models, gp_dec_w
+    release()
+
+    phase("set and attention family kernels: K2 and K3 at the decoders' z-folded rows "
+          "(n_z x B x 128 points) with the runs' own weights vs plain")
+    set_rows = check_set_kernels(gen)
+    k2_rows += set_rows["K2"]
+    k3_rows += set_rows["K3"]
     release()
 
     phase(f"GP sampler on the card: {GP_MOMENT_N} functions of each kernel, their moments")
@@ -2309,13 +2412,23 @@ def main() -> int:
 
     phase(f"the 21 GP runs: each scored over {GP_N_TEST} fresh functions a kernel, graphed, held to "
           "the bands of JAX's eval draws through the port's CPU forward; one run of each family against eager scoring")
-    gp_score_paths, gp_batch_ms = check_gp_scores(smi)
+    gp_score_paths, gp_batch_ms = check_gp_scores(GP_RUNS, GP_FAMILIES, smi)
     phase("the GP paths: one batch of each family, kernel path vs plain path")
     gp_batch = {GP_FAMILIES[r]: check_gp_batch(r, smi) for r in GP_FAMILIES}
     release()
 
+    phase(f"the 57 set and attention GP runs: each scored over {GP_N_TEST} fresh functions a "
+          "kernel through K2, graphed, held to the bands of JAX's eval draws through the port's "
+          "CPU forward; one run of each family against eager scoring")
+    set_score_paths, set_batch_ms = check_gp_scores(SET_RUNS, SET_FAMILIES, smi)
+    gp_score_paths.update(set_score_paths)
+    gp_batch_ms.update(set_batch_ms)
+    phase("the set and attention paths: one batch of each family, kernel path vs plain path")
+    gp_batch.update({SET_FAMILIES[r]: check_gp_batch(r, smi) for r in SET_FAMILIES})
+    release()
+
     gp_families = {}
-    for name, gp_summary in GP_TRAIN:
+    for name, gp_summary in GP_TRAIN + SET_TRAIN:
         phase(f"GP training path {name}: {gp_summary['model']} on {gp_summary['kernel']}, graphed "
               f"against eager, {GP_TRAIN_STEPS} graphed steps from seeds {FAMILY_SEEDS}, kernel "
               "path against plain")

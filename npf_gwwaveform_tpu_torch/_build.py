@@ -1,7 +1,8 @@
-"""Build the port's CUDA kernels with one nvcc call and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every `csrc/*.cu` file (with the `csrc/*.cuh` and `*.h` headers they include) is
-compiled by a single `nvcc` invocation into one shared library with a plain C
+compiled by an `nvcc -c` of its own, all of them started together, and the
+objects are linked by one more `nvcc` into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds). The library lands
 in the git-ignored `build/` directory of this package, named by a hash of the
 sources and flags, and is built at the first kernel launch of a process,
@@ -104,7 +105,8 @@ def library_path(csrc_dir: str = CSRC_DIR) -> str:
 
 def build(verbose: bool = False, csrc_dir: str = CSRC_DIR) -> BuildResult:
     """Compile all kernels of `csrc_dir` into one shared library unless it
-    already exists.
+    already exists: one `nvcc -c` a source, all running at once, then one
+    link.
 
     verbose adds `-Xptxas -v`, whose report (registers, shared memory and
     spills per kernel) is returned in `log`; it does not change the binary.
@@ -115,14 +117,30 @@ def build(verbose: bool = False, csrc_dir: str = CSRC_DIR) -> BuildResult:
         return BuildResult(path, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *srcs]
+    obj_dir = f"{tmp}.objs"
+    os.makedirs(obj_dir, exist_ok=True)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [os.path.join(obj_dir, os.path.basename(s) + ".o") for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc(), *compile_flags, *(["-Xptxas", "-v"] if verbose else []),
+                               "-c", "-o", o, s], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s, p.returncode, log) for s, p, log in zip(srcs, procs, logs) if p.returncode]
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode, logs[-1]))
+    shutil.rmtree(obj_dir, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{os.path.basename(s)} ({rc}):\n{log}"
+                                                     for s, rc, log in failed))
     os.replace(tmp, path)  # atomic: a concurrent loader never sees a partial file
-    return BuildResult(path, seconds, proc.stdout + proc.stderr)
+    return BuildResult(path, seconds, "".join(logs))
 
 
 def load(path: str) -> ctypes.CDLL:

@@ -17,11 +17,13 @@ settings the way `experiments/reproduce_gw.py` records them (the flagship's
 by default), and `run_tag` names its directory as that script does.
 
 The 1-D GP benchmark's models (`experiments/reproduce_gp.py`) come from
-`gp_model_1d` (the notebooks' ConvCNP and ConvLNP: a 64-a-unit grid, so 192
-points on [-1.5, 1.5], five and four BatchNorm blocks, no conditioning) and
-`gp_model_variant` (the objective-ablation grid's ConvLNP, `variant_name`
-naming its directory); `gp_model_from_summary` rebuilds a GP run from its
-summary as `experiments/reeval.py` does, with the run's own BatchNorm eps.
+`gp_model_1d` (the notebooks' CNP, LNP, AttnCNP, AttnLNP, ConvCNP and
+ConvLNP; the conv family on a 64-a-unit grid, so 192 points on [-1.5,
+1.5], five and four BatchNorm blocks, no conditioning) and
+`gp_model_variant` (the objective-ablation grid's LNP, AttnLNP and ConvLNP,
+`variant_name` naming its directory); `gp_model_from_summary` rebuilds a GP
+run from its summary as `experiments/reeval.py` does, with the run's own
+BatchNorm eps.
 A GW loader refuses a GP run's summary (it has a `kernel` field) and the GP
 loader a GW run's.
 """
@@ -32,18 +34,28 @@ from typing import Optional, Sequence
 
 import torch
 
+from torch import nn
+
 from .losses import BaseLossNPF, CNPFLoss, ELBOLossLNPF, NLLLossLNPF, SUMOLossLNPF
+from .models.attnnp import AttnCNP, AttnLNP
 from .models.convnp import ConvCNP, ConvLNP
+from .models.np import CNP, LNP
 
 R_DIM = 128
 
 __all__ = ["gw_model_from_summary", "gw_train_summary", "run_tag", "train_config", "CONFIG_KEYS",
-           "R_DIM", "STEPS_PER_EPOCH", "MODELS", "gp_criterion", "criterion_from_summary",
+           "R_DIM", "STEPS_PER_EPOCH", "MODELS", "GP_MODELS", "SET_MODELS", "LATENT_MODELS",
+           "gp_criterion", "criterion_from_summary",
            "default_clip", "gp_model_1d", "gp_model_variant", "variant_name", "parse_variant",
            "gp_model_from_summary", "gp_criterion_from_summary", "is_gp_summary"]
 
-# the model families the port builds
+# the GW model families the port builds
 MODELS = ("ConvCNP", "ConvLNP")
+# the GP benchmark's families: the set and attention family, then the conv family
+SET_MODELS = ("CNP", "LNP", "AttnCNP", "AttnLNP")
+GP_MODELS = SET_MODELS + MODELS
+# the latent families, which have objective-ablation variants and SUMO runs
+LATENT_MODELS = ("LNP", "AttnLNP", "ConvLNP")
 
 # experiments/reproduce_gw.py decays the learning rate once per 1562 steps
 STEPS_PER_EPOCH = 1562
@@ -110,15 +122,41 @@ def is_gp_summary(summary: dict) -> bool:
     return "kernel" in summary
 
 
+# the set and attention family's GP configurations (the JAX package's
+# `gp_model_1d`): the xy-encoder's hidden width in units of r_dim, the
+# attender, and the latent path (NPVI: q(z|C,T) with one draw in training)
+_SET_CONFIGS = {
+    "CNP": (CNP, 2, {}),
+    "LNP": (LNP, 2, dict(is_q_zCct=True, n_z_samples_train=1, n_z_samples_test=32)),
+    "AttnCNP": (AttnCNP, 1, dict(attention="transformer")),
+    "AttnLNP": (AttnLNP, 1, dict(attention="transformer", is_q_zCct=True, n_z_samples_train=1,
+                                 n_z_samples_test=8)),
+}
+# the NPML ablation variants' and SUMO's z draws in training (and in eval)
+_NPML_DRAWS = {"LNP": 32, "AttnLNP": 8, "ConvLNP": 16}
+
+
+def _set_model(name: str, r_dim: int, dtype: Optional[torch.dtype], use_kernels: bool,
+               **overrides) -> nn.Module:
+    cls, hidden, kwargs = _SET_CONFIGS[name]
+    return cls(x_dim=1, y_dim=1, r_dim=r_dim, xy_hidden_size=hidden * r_dim,
+               use_kernels=use_kernels, dtype=dtype, **{**kwargs, **overrides})
+
+
 def gp_model_1d(name: str, r_dim: int = R_DIM, dtype: Optional[torch.dtype] = None,
                 cnn_kernel_size: int = 19, cnn_norm_eps: float = 1e-3,
-                use_kernels: bool = True) -> ConvCNP:
+                use_kernels: bool = True) -> nn.Module:
     """The 1-D GP benchmark's model, as the JAX package's `gp_model_1d`
-    builds it: ConvCNP (five blocks, the MLP decoder through K2) or ConvLNP
-    (four blocks in both grid CNNs, `is_global`, NPML with 16 z draws in
-    training and 32 in eval, a linear decoder), each on a grid of 64 points
-    a unit, BatchNorm eps `cnn_norm_eps`. The set and attention families
-    raise NotImplementedError (ROADMAP queue 1, item 7)."""
+    builds it: CNP and LNP (the xy-encoder's MLP at 2 * r_dim), AttnCNP and
+    AttnLNP (at r_dim, a transformer attender of 8 heads), LNP and AttnLNP
+    trained with NPVI (q(z|C,T), one draw) and scored at 32 and 8 draws;
+    ConvCNP (five blocks, the MLP decoder through K2) or ConvLNP (four
+    blocks in both grid CNNs, `is_global`, NPML with 16 z draws in training
+    and 32 in eval, a linear decoder), each on a grid of 64 points a unit,
+    BatchNorm eps `cnn_norm_eps`. The set family's decoder is the MLP chain
+    (K2 and K3) too."""
+    if name in _SET_CONFIGS:
+        return _set_model(name, r_dim, dtype, use_kernels)
     common = dict(x_dim=1, y_dim=1, r_dim=r_dim, density_induced=64,
                   cnn_kernel_size=cnn_kernel_size, cnn_norm="batch", cnn_n_conv_layers=2,
                   cnn_norm_eps=cnn_norm_eps, use_kernels=use_kernels, dtype=dtype)
@@ -127,33 +165,37 @@ def gp_model_1d(name: str, r_dim: int = R_DIM, dtype: Optional[torch.dtype] = No
     if name == "ConvLNP":
         return ConvLNP(cnn_n_blocks=4, is_global=True, is_q_zCct=False, n_z_samples_train=16,
                        n_z_samples_test=32, **common)
-    if name in ("CNP", "LNP", "AttnCNP", "AttnLNP"):
-        raise NotImplementedError(f"model={name!r} not ported yet (ROADMAP queue 1, item 7)")
     raise ValueError(name)
 
 
 def gp_model_variant(name: str, is_elbo: bool, is_lat_lb: bool, is_sig_lb: bool,
                      r_dim: int = R_DIM, dtype: Optional[torch.dtype] = None,
                      cnn_norm_eps: float = 1e-3, headline_arch: bool = False,
-                     use_kernels: bool = True) -> ConvLNP:
-    """The objective-ablation grid's ConvLNP, as the JAX package's
-    `gp_model_variant` builds it: the ELBO from q(z|C,T) with one draw in
-    training (`is_elbo`) or NPML with 16; 16 draws in eval; `min_sigma_pred`
-    0.01 (`is_sig_lb`) or 1e-4; the q(z) scale 0.1 + 0.9 sigmoid
-    (`is_lat_lb`) or 1e-4 + softplus. The "notebook" architecture has z_dim
-    16 (`reshaper_z` maps it to r_dim) and no global latent; the headline
-    one (`headline_arch`) keeps z_dim = r_dim and the global latent. Both
-    decode linearly."""
-    if name != "ConvLNP":
-        raise NotImplementedError(f"the {name} ablation variants are not ported yet "
-                                  "(ROADMAP queue 1, item 7)")
+                     use_kernels: bool = True) -> nn.Module:
+    """The objective-ablation grid's LNP, AttnLNP or ConvLNP, as the JAX
+    package's `gp_model_variant` builds it: the ELBO from q(z|C,T) with one
+    draw in training (`is_elbo`) or NPML with 32 (LNP), 8 (AttnLNP) or 16
+    (ConvLNP), as many in eval; `min_sigma_pred` 0.01 (`is_sig_lb`) or
+    1e-4; the q(z) scale 0.1 + 0.9 sigmoid (`is_lat_lb`) or 1e-4 +
+    softplus. LNP and AttnLNP keep `gp_model_1d`'s architecture. The
+    ConvLNP "notebook" architecture has z_dim 16 (`reshaper_z` maps it to
+    r_dim) and no global latent; the headline one (`headline_arch`) keeps
+    z_dim = r_dim and the global latent. Both decode linearly."""
+    if name not in LATENT_MODELS:
+        raise ValueError(f"{name} has no objective-ablation variant")
     scale = {} if is_lat_lb else dict(lat_scale_transform="softplus", min_lat_sigma=1e-4)
+    if name != "ConvLNP":
+        draws = _NPML_DRAWS[name]
+        return _set_model(name, r_dim, dtype, use_kernels, is_q_zCct=is_elbo,
+                          n_z_samples_train=1 if is_elbo else draws, n_z_samples_test=draws,
+                          min_sigma_pred=0.01 if is_sig_lb else 1e-4, **scale)
     arch = {} if headline_arch else dict(z_dim=16, is_global=False)
     return ConvLNP(x_dim=1, y_dim=1, r_dim=r_dim, density_induced=64, cnn_kernel_size=19,
                    cnn_norm="batch", cnn_n_conv_layers=2, cnn_norm_eps=cnn_norm_eps,
                    cnn_n_blocks=4, use_kernels=use_kernels, dtype=dtype,
                    **{"is_global": True, **arch}, is_q_zCct=is_elbo,
-                   n_z_samples_train=1 if is_elbo else 16, n_z_samples_test=16,
+                   n_z_samples_train=1 if is_elbo else _NPML_DRAWS[name],
+                   n_z_samples_test=_NPML_DRAWS[name],
                    min_sigma_pred=0.01 if is_sig_lb else 1e-4, **scale)
 
 
@@ -176,13 +218,14 @@ def parse_variant(run_name: str) -> tuple:
 
 
 def gp_model_from_summary(summary: dict, use_kernels: bool = True,
-                          dtype: Optional[torch.dtype] = None) -> ConvCNP:
+                          dtype: Optional[torch.dtype] = None) -> nn.Module:
     """A GP run's model as `experiments/reeval.py` rebuilds it: the ablation
-    variant its name encodes (`{model}_ELBO*_LatLB*_SigLB*`, the architecture
-    its `ablation_arch` records, "notebook" when absent), the SUMO run's
-    NPML variant (`{model}_SUMO`: headline scale bounds, notebook
-    architecture), or the family's `gp_model_1d`; BatchNorm eps the
-    summary's `norm_eps` (1e-3 when absent). A GW run's summary is refused."""
+    variant its name encodes (`{model}_ELBO*_LatLB*_SigLB*`, for ConvLNP the
+    architecture its `ablation_arch` records, "notebook" when absent), the
+    SUMO run's NPML variant (`{model}_SUMO`: headline scale bounds, for
+    ConvLNP the notebook architecture), or the family's `gp_model_1d`;
+    BatchNorm eps the summary's `norm_eps` (1e-3 when absent). A GW run's
+    summary is refused."""
     if not is_gp_summary(summary):
         raise ValueError("not a GP run's summary (no `kernel`): rebuild a GW run with "
                          "configs.gw_model_from_summary (score.load_model)")
@@ -211,12 +254,15 @@ def gp_criterion_from_summary(summary: dict) -> BaseLossNPF:
 
 def gp_criterion(name: str) -> BaseLossNPF:
     """The training objective of a model family (eval always forces NPML):
-    the exact NLL for ConvCNP, NPML for ConvLNP."""
-    if name == "ConvCNP":
+    the exact NLL for CNP, AttnCNP and ConvCNP, the ELBO (NPVI) for LNP and
+    AttnLNP, NPML for ConvLNP."""
+    if name in ("CNP", "AttnCNP", "ConvCNP"):
         return CNPFLoss()
+    if name in ("LNP", "AttnLNP"):
+        return ELBOLossLNPF()
     if name == "ConvLNP":
         return NLLLossLNPF()
-    raise NotImplementedError(f"model={name!r} not ported yet")
+    raise ValueError(name)
 
 
 def criterion_from_summary(summary: dict) -> BaseLossNPF:

@@ -89,6 +89,17 @@ def light_tail_pareto_inv_weights(max_n: int, m: int = 5, alpha: int = 85) -> np
     return np.where(kk < ap, 1.0 / kk, (1.0 / ap) * 0.9 ** (kk - ap))
 
 
+def _inv_weights(n_z: int, m: int, alpha: int, device) -> torch.Tensor:
+    """`light_tail_pareto_inv_weights` [n_z, 1] made on `device` in float64
+    and rounded to float32, so that a CUDA graph captures it with no copy
+    from the host."""
+    ks = torch.arange(1, n_z + 1, dtype=torch.float64, device=device)
+    kk = torch.clamp(ks - m, min=1.0)
+    ap = float(alpha - m)
+    w = torch.where(kk < ap, 1.0 / kk, (1.0 / ap) * torch.pow(0.9, kk - ap))
+    return w.float()[:, None]
+
+
 def sumo_loss(out: NPFOutput, y_trgt, mask_trgt=None, m: int = 5, alpha: int = 85):
     """SUMO's unbiased log-marginal estimate, the IWAE sequence telescoped
     from its m-th term with the weights `light_tail_pareto_inv_weights`;
@@ -100,8 +111,7 @@ def sumo_loss(out: NPFOutput, y_trgt, mask_trgt=None, m: int = 5, alpha: int = 8
     dev = sum_log_w.device
     log_ks = torch.log(torch.arange(1, n_z + 1, dtype=torch.float32, device=dev))[:, None]
     cum_iwae = logcumsumexp(sum_log_w, dim=0) - log_ks
-    inv_w = torch.from_numpy(light_tail_pareto_inv_weights(n_z, m, alpha).astype(np.float32))
-    inv_w = inv_w.to(dev)[:, None]
+    inv_w = _inv_weights(n_z, m, alpha, dev)
     sumo = cum_iwae[m - 1] + (inv_w[m:] * (cum_iwae[m:] - cum_iwae[m - 1:-1])).sum(dim=0)
     return -sumo
 

@@ -1,4 +1,6 @@
+from .attnnp import AttnCNP, AttnLNP
 from .base import NeuralProcessFamily
 from .convnp import ConvCNP, ConvLNP
+from .np import CNP, LNP
 
-__all__ = ["ConvCNP", "ConvLNP", "NeuralProcessFamily"]
+__all__ = ["AttnCNP", "AttnLNP", "CNP", "ConvCNP", "ConvLNP", "LNP", "NeuralProcessFamily"]

@@ -1,11 +1,17 @@
 """Forward skeleton of the neural-process family, the counterpart of
 `npf_gwwaveform_tpu/models/base.py::NeuralProcessFamily`.
 
-x-encode -> `encode_globally` -> (with `cond_mode="add"`, the condition
-embedding added to every position of R) -> with a latent path
+x-encode (`x_encoder`: the identity here, an MLP in the set and
+attention family) -> `encode_globally` -> (with `cond_mode="add"`, the
+condition embedding added to every position of R) -> with a latent path
 (`encoded_path` "latent" or "both") `latent_path` -> `trgt_dependent_representation`
 -> `decode` into a diagonal Gaussian with scale `min_sigma_pred + (1 -
-min_sigma_pred) * softplus`. Point sets are padded and carry boolean masks.
+min_sigma_pred) * softplus`; with `is_heteroskedastic=False` the scale is
+pooled over the real targets and broadcast back. Point sets are padded and
+carry boolean masks. With "both", `merge_r_z` merges R and z by
+relu(`r_z_merger`([R; z])); with "latent" and z_dim != r_dim, `reshaper_z`
+maps z to r_dim (both flax Dense layers, switchable lecun-normal;
+`_make_latent_merger`).
 
 The latent path infers q(z|C) from R (`infer_latent_dist`: the latent
 encoder MLP, then loc and a scale `min_lat_sigma + max_lat_sigma_ratio *
@@ -40,7 +46,9 @@ from torch import nn
 
 from ..distributions import NormalDiag
 from ..losses import NPFOutput
-from ..ops.mlp import MLP
+from ..ops.mlp import MLP, Dense
+from ..utils import init as winit
+from ..utils.helpers import masked_mean
 
 
 def _softplus_jax(x: torch.Tensor) -> torch.Tensor:
@@ -79,7 +87,8 @@ class NeuralProcessFamily(nn.Module):
                  encoded_path: str = "deterministic", is_q_zCct: bool = False,
                  n_z_samples_train: int = 32, n_z_samples_test: int = 32,
                  z_dim: Optional[int] = None, min_lat_sigma: float = 0.1,
-                 max_lat_sigma_ratio: float = 0.9, lat_scale_transform: str = "sigmoid"):
+                 max_lat_sigma_ratio: float = 0.9, lat_scale_transform: str = "sigmoid",
+                 is_heteroskedastic: bool = True):
         super().__init__()
         if encoded_path not in ("deterministic", "latent", "both"):
             raise ValueError(f"Unknown encoded_path={encoded_path}")
@@ -98,6 +107,8 @@ class NeuralProcessFamily(nn.Module):
         self.z_dim = r_dim if z_dim is None else z_dim
         self.min_lat_sigma, self.max_lat_sigma_ratio = min_lat_sigma, max_lat_sigma_ratio
         self.lat_scale_transform = lat_scale_transform
+        self.is_heteroskedastic = is_heteroskedastic
+        self.x_encoder = nn.Identity()
         if cond_dim > 0:
             self.cond_encoder = MLP(cond_dim, r_dim, n_hidden_layers=1, hidden_size=r_dim,
                                     dtype=dtype)
@@ -115,8 +126,26 @@ class NeuralProcessFamily(nn.Module):
         return MLP(self.r_dim, n_out, n_hidden_layers=4, hidden_size=self.r_dim,
                    fused=self.use_kernels, dtype=self.dtype)
 
-    def x_encoder(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+    def _make_latent_merger(self) -> None:
+        """`r_z_merger` for "both", `reshaper_z` for "latent" with z_dim !=
+        r_dim: flax Dense layers, switchable lecun-normal."""
+        lecun = winit.switchable(winit.lecun_normal)
+        if self.encoded_path == "both":
+            self.r_z_merger = Dense(self.r_dim + self.z_dim, self.r_dim, self.dtype, lecun)
+        elif self.encoded_path == "latent" and self.z_dim != self.r_dim:
+            self.reshaper_z = Dense(self.z_dim, self.r_dim, self.dtype, lecun)
+
+    def merge_r_z(self, R, z_samples):
+        """relu(r_z_merger([R; z])): R without the z axis is broadcast over the
+        draws of z_samples [n_z, B, ..., z_dim]; with it, both broadcast to
+        their common shape."""
+        if R.dim() != z_samples.dim():
+            R = R[None].expand(z_samples.shape[:-1] + (R.shape[-1],))
+        else:
+            shape = torch.broadcast_shapes(R.shape[:-1], z_samples.shape[:-1])
+            R = R.expand(shape + (R.shape[-1],))
+            z_samples = z_samples.expand(shape + (z_samples.shape[-1],))
+        return torch.relu(self.r_z_merger(torch.cat([R, z_samples], dim=-1)))
 
     def forward(self, x_cntxt, y_cntxt, x_trgt, mask_cntxt: Optional[torch.Tensor] = None,
                 mask_trgt: Optional[torch.Tensor] = None,
@@ -149,7 +178,7 @@ class NeuralProcessFamily(nn.Module):
         if self.encoded_path == "latent":
             R = None
         R_trgt = self.trgt_dependent_representation(x_c, z_samples, R, x_t, mask_cntxt)
-        return NPFOutput(self.decode(x_t, R_trgt), z_samples, q_zCc, q_zCct)
+        return NPFOutput(self.decode(x_t, R_trgt, mask_trgt), z_samples, q_zCc, q_zCct)
 
     def latent_path(self, x_t, R, y_trgt, mask_cntxt, mask_trgt, cond_emb, generator, eps):
         """-> (z_samples [n_z, B, *n_lat, z_dim] float32, q(z|C), q(z|C,T) or
@@ -184,7 +213,7 @@ class NeuralProcessFamily(nn.Module):
         representation)."""
         return R
 
-    def decode(self, x_t, R_trgt) -> NormalDiag:
+    def decode(self, x_t, R_trgt, mask_trgt=None) -> NormalDiag:
         suffstat = self.decoder(x_t, R_trgt)  # [n_z, B, Nt, 2*y_dim]
         loc, raw_scale = suffstat.split(self.y_dim, dim=-1)
         lo, span = _weak((self.min_sigma_pred, 1.0 - self.min_sigma_pred), raw_scale.dtype)
@@ -192,6 +221,11 @@ class NeuralProcessFamily(nn.Module):
             scale = lo + span * F.softplus(raw_scale)
         else:
             scale = lo + span * _softplus_jax(raw_scale)
+        if not self.is_heteroskedastic:  # pooled over the real targets
+            if mask_trgt is None:
+                mask_trgt = torch.ones(scale.shape[1:3], dtype=torch.bool, device=scale.device)
+            pooled = masked_mean(scale, mask_trgt[None], dim=-2)
+            scale = pooled[..., None, :].expand(scale.shape)
         return NormalDiag(loc.float(), scale.float())
 
     def encode_globally(self, x_c, y_c, mask_cntxt, cond_emb=None):

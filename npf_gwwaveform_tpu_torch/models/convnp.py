@@ -142,11 +142,7 @@ class ConvLNP(ConvCNP):
         super().__init__(*args, encoded_path=encoded_path, **kwargs)
         self.is_global = is_global
         self.induced_to_induced_post_sampling = self._make_cnn()
-        lecun = winit.switchable(winit.lecun_normal)
-        if encoded_path == "both":
-            self.r_z_merger = Dense(self.r_dim + self.z_dim, self.r_dim, self.dtype, lecun)
-        elif self.z_dim != self.r_dim:
-            self.reshaper_z = Dense(self.z_dim, self.r_dim, self.dtype, lecun)
+        self._make_latent_merger()
 
     def _make_decoder(self) -> nn.Module:
         """A linear decoder on R only: flax's default Dense."""
@@ -163,12 +159,6 @@ class ConvLNP(ConvCNP):
         """The second half of the channels pooled over the grid, broadcast back."""
         half = z.shape[-1] // 2
         return torch.cat([z[..., :half], pool_and_replicate_middle(z[..., half:])], dim=-1)
-
-    def merge_r_z(self, R, z_samples):
-        """relu(Dense([R; z])), R [B, n_ind, r_dim] broadcast over the draws
-        of z_samples [n_z, B, n_ind, z_dim]."""
-        R = R[None].expand(z_samples.shape[:-1] + (R.shape[-1],))
-        return torch.relu(self.r_z_merger(torch.cat([R, z_samples], dim=-1)))
 
     def trgt_dependent_representation(self, x_c, z_samples, R, x_t, mask_cntxt):
         """-> [n_z, B, Nt, r_dim]: the draws folded into the batch through the

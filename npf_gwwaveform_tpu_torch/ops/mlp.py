@@ -1,11 +1,16 @@
-"""ReLU MLP with the reference's hidden-size clamp and residual option, the
+"""MLP with the reference's hidden-size clamps and residual option, the
 counterpart of `npf_gwwaveform_tpu/ops/mlp.py::MLP` (no dropout).
 
-Order: to_hidden -> relu -> (linear_i -> relu [+ residual])* -> out. With
-`fused=True` the whole chain is one `FusedReluMLPFn`: kernel K2 forward and
-kernel K3 backward, their plain versions on CPU tensors; the parameters are
-the same either way. Initial values follow the JAX scheme
-(`utils/init.py`): hidden layers kaiming-uniform, `out` xavier, biases zero.
+Order: to_hidden -> act -> (linear_i -> act [+ residual])* -> out, the
+activation ReLU or tanh (`activation`), every layer with or without a bias
+(`is_bias`). The hidden size is raised to min(input, output) where it is
+smaller and, with `is_force_hid_smaller`, lowered to max(input, output)
+where it is larger (JAX's `_clamp_hidden`). With `fused=True` a ReLU chain
+is one `FusedReluMLPFn`: kernel K2 forward and kernel K3 backward, their
+plain versions on CPU tensors; the parameters are the same either way (a
+tanh MLP never fuses, as in JAX). Initial values follow the JAX scheme
+(`utils/init.py`): hidden layers kaiming-uniform (xavier with the tanh
+gain for tanh), `out` xavier, biases zero.
 
 `dtype` is the JAX module's compute dtype: None computes in the input's
 dtype as promoted with the float32 parameters (float32 here); bfloat16
@@ -58,30 +63,49 @@ class Dense(nn.Linear):
         return dense(self, x, self.dtype)
 
 
+_ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh}
+
+
+def _clamp_hidden(hidden_size: int, input_size: int, output_size: int,
+                 is_force_hid_smaller: bool = False) -> int:
+    """JAX's `_clamp_hidden`: at most max(input, output) with
+    `is_force_hid_smaller`, else at least min(input, output)."""
+    if is_force_hid_smaller and hidden_size > max(output_size, input_size):
+        return max(output_size, input_size)
+    if hidden_size < min(output_size, input_size):
+        return min(output_size, input_size)
+    return hidden_size
+
+
 class MLP(nn.Module):
-    """The hidden size is raised to min(input_size, output_size) when it is
-    smaller (the reference's clamp)."""
+    """`activation` is "relu" or "tanh"; `fused` applies to a ReLU chain."""
 
     def __init__(self, input_size: int, output_size: int, hidden_size: int = 32,
                  n_hidden_layers: int = 1, is_res: bool = False, fused: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, activation: str = "relu",
+                 is_bias: bool = True, is_force_hid_smaller: bool = False):
         super().__init__()
         if n_hidden_layers < 1:
             raise ValueError("n_hidden_layers must be >= 1")
-        hidden_size = max(hidden_size, min(input_size, output_size))
+        if activation not in _ACTIVATIONS:
+            raise ValueError(f"activation={activation!r}: one of {sorted(_ACTIVATIONS)}")
+        hidden_size = _clamp_hidden(hidden_size, input_size, output_size, is_force_hid_smaller)
         self.n_hidden_layers = n_hidden_layers
         self.is_res = is_res
-        self.fused = fused
+        self.activation = activation
+        self.fused = fused and activation == "relu"
         self.dtype = dtype
-        self.to_hidden = nn.Linear(input_size, hidden_size)
+        self.to_hidden = nn.Linear(input_size, hidden_size, bias=is_bias)
         for i in range(n_hidden_layers - 1):
-            self.add_module(f"linear_{i}", nn.Linear(hidden_size, hidden_size))
-        self.out = nn.Linear(hidden_size, output_size)
+            self.add_module(f"linear_{i}", nn.Linear(hidden_size, hidden_size, bias=is_bias))
+        self.out = nn.Linear(hidden_size, output_size, bias=is_bias)
         self.init_params()
 
     def init_params(self, generator=None) -> None:
+        hidden_init = (winit.hidden_tanh_init if self.activation == "tanh"
+                       else winit.hidden_relu_init)
         for layer in (self.to_hidden, *self._hidden()):
-            winit.init_dense(layer, winit.hidden_relu_init, generator)
+            winit.init_dense(layer, hidden_init, generator)
         winit.init_dense(self.out, winit.mlp_out_init, generator)
 
     def _hidden(self):
@@ -95,15 +119,19 @@ class MLP(nn.Module):
             w = self.to_hidden.weight
             h = self.to_hidden.out_features
             wh = torch.stack([l.weight for l in hidden]) if hidden else w.new_zeros((0, h, h))
-            bh = torch.stack([l.bias for l in hidden]) if hidden else w.new_zeros((0, h))
+            if self.to_hidden.bias is None:
+                bh = None
+            else:
+                bh = torch.stack([l.bias for l in hidden]) if hidden else w.new_zeros((0, h))
             out = FusedReluMLPFn.apply(
                 x.reshape(-1, x.shape[-1]).to(cdtype).contiguous(),
                 w, self.to_hidden.bias, wh, bh,
                 self.out.weight, self.out.bias, self.is_res, cdtype,
             )
             return out.reshape(*x.shape[:-1], self.out.out_features)
-        a = torch.relu(dense(self.to_hidden, x, self.dtype))
+        act = _ACTIVATIONS[self.activation]
+        a = act(dense(self.to_hidden, x, self.dtype))
         for layer in hidden:
-            r = torch.relu(dense(layer, a, self.dtype))
+            r = act(dense(layer, a, self.dtype))
             a = r + a if self.is_res else r
         return dense(self.out, a, self.dtype)

@@ -1,7 +1,7 @@
 """Read what a run directory records: the quality bands a rescoring of the
 run must land in, and a run's training history beside another's.
 
-    python -m npf_gwwaveform_tpu_torch.run_report bands [--results results/]
+    python -m npf_gwwaveform_tpu_torch.run_report bands [--results results/] [--set]
     python -m npf_gwwaveform_tpu_torch.run_report history --run RUN_DIR --ref RUN_DIR
 
 `bands` prints a markdown table of every GW ConvCNP run under `--results`
@@ -18,7 +18,8 @@ side. For the flagship run this gives [883.9, 905.5] and [0.00143, 0.00300];
 0.0030] it has used since the run was first scored. After a blank line it
 prints every conv-family GP run (`gp_runs`): its recorded mean LL over its
 `eval.csv` and the band by the same rule at half their count (9,984 ->
-4,992 resampled), LL only (`gp_band`).
+4,992 resampled), LL only (`gp_band`). With `--set` it prints instead the
+57 set and attention GP runs (`gp_set_runs`) the same way.
 
 `history` prints, at steps 10,000, 50,000, 100,000, 150,000 and 200,000,
 the 50-step train loss that ends there and the mean over the 1,000 steps
@@ -35,8 +36,11 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["recorded_scores", "bands_of", "score_bands", "gp_band", "gp_runs", "scored_runs",
-           "history_at", "main"]
+from .configs import SET_MODELS
+
+__all__ = ["recorded_scores", "bands_of", "score_bands", "gp_band", "gp_runs", "gp_set_runs",
+           "scored_runs", "history_at", "main"]
+
 
 N_BOOT, N_RESAMPLE, QUANTILE, WIDEN, BOOT_SEED = 10_000, 1024, 0.99, 0.5, 0
 HISTORY_STEPS, HISTORY_WINDOW = (10_000, 50_000, 100_000, 150_000, 200_000), 1000
@@ -88,6 +92,16 @@ def gp_runs(results: str = "results") -> list:
         os.path.join(results, "*_Kernel*", "Conv*", "run_*", "params.msgpack")))
 
 
+def gp_set_runs(results: str = "results") -> list:
+    """The set and attention family's GP run directories under `results`
+    that hold parameters (CNP, LNP, AttnCNP and AttnLNP of the five kernels
+    and `All_Kernels`, the LNP and AttnLNP objective-ablation grids and
+    `LNP_SUMO`), sorted."""
+    return sorted(os.path.dirname(p) for p in glob.glob(
+        os.path.join(results, "*_Kernel*", "*", "run_*", "params.msgpack"))
+        if p.split(os.sep)[-3].split("_")[0] in SET_MODELS)
+
+
 def scored_runs(results: str = "results", model: str = "ConvCNP") -> list:
     """The GW run directories of `model` ("ConvCNP": time-domain and
     frequency-domain; "ConvLNP": the four latent runs) under `results` that
@@ -111,15 +125,31 @@ def _fmt(x, digits):
     return "n/a" if x is None else f"{x:.{digits}f}"
 
 
+def _gp_table(runs: list, results: str) -> None:
+    """A markdown table of GP runs: functions, recorded mean LL, `gp_band`."""
+    print("| GP run | Functions | Recorded mean LL | LL band |")
+    print("| --- | --- | --- | --- |")
+    for run_dir in runs:
+        ll = np.loadtxt(os.path.join(run_dir, "eval.csv"), delimiter=",", ndmin=1)
+        l0, l1 = gp_band(run_dir)
+        print(f"| `{os.path.relpath(run_dir, results)}` | {ll.shape[0]} | {ll.mean():.2f} | "
+              f"[{l0:.2f}, {l1:.2f}] |")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     b = sub.add_parser("bands")
     b.add_argument("--results", default="results")
+    b.add_argument("--set", action="store_true",
+                   help="the set and attention family's GP runs instead")
     h = sub.add_parser("history")
     h.add_argument("--run", required=True)
     h.add_argument("--ref", required=True)
     args = ap.parse_args(argv)
+    if args.cmd == "bands" and args.set:
+        _gp_table(gp_set_runs(args.results), args.results)
+        return
     if args.cmd == "bands":
         print("| Run | Recorded mean LL | LL band | Recorded median mismatch | Mismatch band |")
         print("| --- | --- | --- | --- | --- |")
@@ -130,13 +160,7 @@ def main(argv=None) -> None:
             print(f"| `{os.path.relpath(run_dir, args.results)}` | {ll.mean():.2f} | "
                   f"[{l0:.2f}, {l1:.2f}] | {np.median(mm):.5f} | [{m0:.5f}, {m1:.5f}] |")
         print()
-        print("| GP run | Functions | Recorded mean LL | LL band |")
-        print("| --- | --- | --- | --- |")
-        for run_dir in gp_runs(args.results):
-            ll = np.loadtxt(os.path.join(run_dir, "eval.csv"), delimiter=",", ndmin=1)
-            l0, l1 = gp_band(run_dir)
-            print(f"| `{os.path.relpath(run_dir, args.results)}` | {ll.shape[0]} | "
-                  f"{ll.mean():.2f} | [{l0:.2f}, {l1:.2f}] |")
+        _gp_table(gp_runs(args.results), args.results)
         return
     hist = {}
     for key in ("run", "ref"):

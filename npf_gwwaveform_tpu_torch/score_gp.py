@@ -10,9 +10,13 @@ fresh functions of 128 points (from 256 on; below, exactly `n_test`), splits
 each into a context of U{0..50} points drawn per function (`is_indep_n`) and
 all 128 points as targets, and records per function the NPML
 log-likelihood (NPML over the z draws without importance weights; a
-deterministic model has one draw). An ELBO-trained ablation run samples z
-from q(z|C,T), since the eval forward sees the targets, as JAX's `_eval_step`
-does. Kernel c's draws (functions, splits, z) come from one generator seeded
+deterministic model has one draw) at the model's own eval draws (ConvLNP
+32 or 16, LNP 32, AttnLNP 8). A run trained with q(z|C,T) (an ELBO-trained
+ablation run, and LNP and AttnLNP, trained with NPVI) samples z from
+q(z|C,T), since the eval forward sees the targets, as JAX's `_eval_step`
+does. Every family's model comes from `configs.gp_model_from_summary`:
+the conv family (K1, and K2 for ConvCNP), and the set and attention family
+(CNP, LNP, AttnCNP, AttnLNP: K2, its decoder, on n_z x 256 x 128 rows). Kernel c's draws (functions, splits, z) come from one generator seeded
 `seed + c`; `seed` is `EVAL_SEED` (123, the seed `reproduce_gp.py`'s eval
 key is made from; Philox cannot replay that threefry stream, so the draws
 are the port's own). On CUDA, where enough batches follow to pay for its
@@ -42,7 +46,6 @@ from .configs import gp_model_from_summary
 from .data.datasplit import CntxtTrgtSplitter, GetRandomIndcs, get_all_indcs
 from .data.gp import KERNEL_CONFIGS, GPSampler, MixtureGPSampler
 from .losses import npml_loss
-from .models.convnp import ConvCNP
 from .training.checkpoint import load_run_params, params_from_flax
 from .utils.cuda_graph import StepGraph
 from .utils.helpers import set_numerics
@@ -73,7 +76,7 @@ def samplers(kernel: str) -> tuple:
 
 
 def load_model(run_dir: str, device="cuda", use_kernels: bool = True,
-               dtype: Optional[torch.dtype] = None) -> ConvCNP:
+               dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
     """The GP run's model (`configs.gp_model_from_summary`) with its trained
     weights, loaded strictly, in eval mode on `device`."""
     with open(os.path.join(run_dir, "summary.json")) as f:

@@ -1,22 +1,24 @@
-"""Train a GP ConvCNP or ConvLNP and score it: the port's counterpart of
+"""Train a GP model and score it: the port's counterpart of
 `experiments/reproduce_gp.py`, in float32.
 
-    python -m npf_gwwaveform_tpu_torch.train_gp [--model ConvCNP|ConvLNP]
+    python -m npf_gwwaveform_tpu_torch.train_gp
+        [--model CNP|LNP|AttnCNP|AttnLNP|ConvCNP|ConvLNP]
         [--kernel RBF_Kernel] [--epochs 100] [--fns-per-epoch 50000] [--batch 32]
         [--n-test 10000] [--seed 123] [--decay-lr 10] [--per-super 80]
         [--init intended|realized] [--norm-eps 1e-3] [--ablation ELBO{T|F}_LatLB{T|F}_SigLB{T|F}]
         [--ablation-arch notebook|headline] [--loss default|sumo] [--run 0]
         [--resume-from RUN_DIR] [--lr 1e-3] [--out runs_torch/] [--device cuda]
 
-The flags have `reproduce_gp.py`'s names, defaults and meanings. The model
-is `configs.gp_model_1d`'s (`--model`), an objective-ablation variant
-(`--ablation`, ConvLNP only: `configs.gp_model_variant` at
-`--ablation-arch`, trained with the ELBO or NPML, the directory
-`configs.variant_name`) or SUMO on the NPML variant (`--loss sumo`, the
-directory `{model}_SUMO`); `--norm-eps` is its BatchNorm eps and `--init`
-the weight-init scheme. Adam at `--lr` decays x`--decay-lr` over `--epochs`
+The flags have `reproduce_gp.py`'s names, defaults and meanings (`--model`
+CNP by default). The model is `configs.gp_model_1d`'s (`--model`), an
+objective-ablation variant (`--ablation`, LNP, AttnLNP or ConvLNP:
+`configs.gp_model_variant`, for ConvLNP at `--ablation-arch`, trained with
+the ELBO or NPML, the directory `configs.variant_name`) or SUMO on the NPML
+variant (`--loss sumo`, the same three, the directory `{model}_SUMO`);
+`--norm-eps` is the conv family's BatchNorm eps and `--init` the
+weight-init scheme. Adam at `--lr` decays x`--decay-lr` over `--epochs`
 epochs of `fns_per_epoch // batch` steps (a staircase per epoch); ConvLNP
-clips the gradients' global norm at 1.0. Each step samples `--batch` fresh
+(and its variants) clips the gradients' global norm at 1.0. Each step samples `--batch` fresh
 functions of 128 points on the device (`--kernel`; `All_Kernels` the
 uniform mixture of RBF, Periodic and Noisy Matern), splits them into one
 context count U{0..50} for the batch and every point as targets, and takes
@@ -59,7 +61,8 @@ import torch
 
 from . import score_gp
 from .configs import (
-    MODELS, gp_criterion_from_summary, gp_model_from_summary, parse_variant, variant_name,
+    GP_MODELS, LATENT_MODELS, gp_criterion_from_summary, gp_model_from_summary, parse_variant,
+    variant_name,
 )
 from .data.datasplit import CntxtTrgtSplitter, GetRandomIndcs, get_all_indcs
 from .training.checkpoint import save_run_params
@@ -87,7 +90,7 @@ def run_name(model: str, ablation: Optional[str] = None, loss: str = "default") 
     return f"{model}_SUMO" if loss == "sumo" else model
 
 
-def train_summary(model: str = "ConvCNP", kernel: str = "RBF_Kernel", epochs: int = 100,
+def train_summary(model: str = "CNP", kernel: str = "RBF_Kernel", epochs: int = 100,
                   norm_eps: float = 1e-3, init: str = "intended", ablation: Optional[str] = None,
                   ablation_arch: str = "notebook", loss: str = "default",
                   lr: float = 1e-3, decay_lr: float = 10.0) -> dict:
@@ -96,11 +99,11 @@ def train_summary(model: str = "ConvCNP", kernel: str = "RBF_Kernel", epochs: in
     when not the default, `lr` and `decay_lr` off their defaults). Raises
     ValueError on what that script refuses and NotImplementedError on a
     model not ported."""
-    if model not in MODELS:
-        raise NotImplementedError(f"model={model!r} not ported yet (ROADMAP queue 1, item 7)")
+    if model not in GP_MODELS:
+        raise ValueError(f"model={model!r}: one of {', '.join(GP_MODELS)}")
     if kernel not in score_gp.KERNELS:
         raise ValueError(f"kernel={kernel!r}: one of {', '.join(score_gp.KERNELS)}")
-    if (ablation or loss == "sumo") and model != "ConvLNP":
+    if (ablation or loss == "sumo") and model not in LATENT_MODELS:
         raise ValueError(f"--ablation and --loss sumo train a latent model, not {model}")
     summary = {"model": run_name(model, ablation, loss), "kernel": kernel, "epochs": epochs,
                "eval_protocol": "indep_n", "norm_eps": norm_eps, "init": init}
@@ -265,7 +268,7 @@ def run(summary: dict, epochs: int = 100, fns_per_epoch: int = 50_000, batch: in
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", default="ConvCNP", choices=list(MODELS))
+    ap.add_argument("--model", default="CNP", choices=list(GP_MODELS))
     ap.add_argument("--kernel", default="RBF_Kernel", choices=list(score_gp.KERNELS))
     ap.add_argument("--epochs", type=int, default=100)
     ap.add_argument("--fns-per-epoch", type=int, default=50_000)
@@ -279,7 +282,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--init", choices=["intended", "realized"], default="intended")
     ap.add_argument("--norm-eps", type=float, default=1e-3)
     ap.add_argument("--ablation", default=None,
-                    help="ELBO{True|False}_LatLB{True|False}_SigLB{True|False} (ConvLNP)")
+                    help="ELBO{True|False}_LatLB{True|False}_SigLB{True|False} "
+                         "(LNP, AttnLNP, ConvLNP)")
     ap.add_argument("--ablation-arch", default="notebook", choices=("notebook", "headline"))
     ap.add_argument("--loss", default="default", choices=("default", "sumo"))
     ap.add_argument("--run", type=int, default=0)

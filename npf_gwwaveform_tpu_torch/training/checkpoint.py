@@ -17,7 +17,11 @@ import numpy as np
 import torch
 
 __all__ = ["read_msgpack", "write_msgpack", "load_run_params", "params_from_flax",
-           "flax_from_params", "save_run_params"]
+           "flax_from_params", "save_run_params", "TRAIN_STATE", "save_train_state",
+           "load_train_state"]
+
+# the port's own train-state file beside the flax files (torch only)
+TRAIN_STATE = "train_state.pt"
 
 _EXT_NDARRAY = 1  # flax's msgpack extension code for an ndarray
 
@@ -118,17 +122,27 @@ def load_run_params(run_dir: str):
     return params, extra
 
 
-# flax module path -> the port's, where they differ: DiscardIthArg's inner
-# module, the ConvCNP decoder's MLP or the ConvLNP decoder's Dense
-_RENAMES = {"MLP_0": "module", "Dense_0": "module"}
+# flax module path -> the port's, where they differ: the inner module of
+# DiscardIthArg (the ConvCNP decoder's MLP, the ConvLNP decoder's Dense) and
+# of MergeFlatInputs (an MLP or a SelfAttention stack), and the Dense of
+# RelativeSinusoidalEncodings
+_RENAMES = {"MLP_0": "module", "Dense_0": "module", "SelfAttention_0": "module"}
+# the children of the port's SelfAttention
+_SELF_ATTENTION_CHILDREN = ("resize", "pos_encoder", "rel_pos_encoder")
 
 
 def _flax_name(parts: list, i: int) -> str:
-    """The flax name of the port's path element parts[i]: DiscardIthArg's
-    `module` is `Dense_0` where it holds the leaf itself, else `MLP_0`."""
+    """The flax name of the port's path element parts[i]: a `module` is
+    `Dense_0` where it holds the leaf itself, `SelfAttention_0` where it
+    holds a self-attention stack's children, else `MLP_0`."""
     if parts[i] != "module":
         return parts[i]
-    return "Dense_0" if i == len(parts) - 2 else "MLP_0"
+    if i == len(parts) - 2:
+        return "Dense_0"
+    child = parts[i + 1]
+    if child.startswith("attn_") or child in _SELF_ATTENTION_CHILDREN:
+        return "SelfAttention_0"
+    return "MLP_0"
 
 
 def _flatten(tree, prefix=()):
@@ -243,3 +257,38 @@ def save_run_params(run_dir: str, model: torch.nn.Module) -> None:
     os.makedirs(run_dir, exist_ok=True)
     write_msgpack(os.path.join(run_dir, "params.msgpack"), params)
     write_msgpack(os.path.join(run_dir, "extra_vars.msgpack"), extra)
+
+
+def save_train_state(run_dir: str, trainer) -> None:
+    """Write `train_state.pt` of a `Trainer`: what JAX's `state.msgpack`
+    holds besides the parameters, in the port's terms: Adam's state
+    (moments and step) by parameter name, the update count the schedule
+    reads, the host step and the trainer's generator state."""
+    opt = trainer.state.optimizer
+    names = {p: n for n, p in trainer.model.named_parameters()}
+    adam = {names[p]: {k: v.detach().cpu().clone() for k, v in st.items()}
+            for p, st in opt.adam.state.items()}
+    os.makedirs(run_dir, exist_ok=True)
+    torch.save({"step": trainer.state.step, "count": int(opt.count.item()), "adam": adam,
+                "generator": trainer.state.generator.get_state()},
+               os.path.join(run_dir, TRAIN_STATE))
+
+
+def load_train_state(run_dir: str, trainer) -> bool:
+    """Put `train_state.pt` (`save_train_state`) back into a trainer of the
+    same model; False, with nothing changed, where the run has none."""
+    path = os.path.join(run_dir, TRAIN_STATE)
+    if not os.path.exists(path):
+        return False
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    opt = trainer.state.optimizer
+    params = dict(trainer.model.named_parameters())
+    opt.adam.state.clear()
+    for name, st in saved["adam"].items():
+        p = params[name]
+        opt.adam.state[p] = {k: v.to(p.device) for k, v in st.items()}
+    with torch.no_grad():
+        opt.count.fill_(saved["count"])
+    trainer.state.step = saved["step"]
+    trainer.state.generator.set_state(saved["generator"])
+    return True

@@ -9,10 +9,15 @@ A run directory holds the JAX package's run files that flax can read:
 statistics, written after every epoch whose valid loss is the best so far,
 or every epoch without a valid set), `model_summary.txt`, `history.json`
 (one entry an epoch: epoch, train_loss, dur and valid_loss) and `eval.csv`.
-The JAX harness also writes `state.msgpack`, its optax state; the port
-writes none, so `is_continue_train` restarts Adam from the checkpoint's
-parameters. The steps run eagerly (the GP harness `train_gp` replays CUDA
-graphs).
+Where the JAX harness writes `state.msgpack` (its optax state, step and
+running key, beside the parameters), the port writes `train_state.pt`
+(`checkpoint.save_train_state`: Adam's moments, the update count, the
+step and the trainer's generator), torch only. A run that finds a
+checkpoint resumes from both where JAX loads its state: without
+`is_retrain` (it returns at once) and with `is_continue_train` (it trains
+on, Adam, the schedule and the draws where they stopped; a run directory
+without `train_state.pt` restarts them). The steps run eagerly (the GP
+harness `train_gp` replays CUDA graphs).
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ import torch
 from ..data.datasplit import CntxtTrgtSplitter, GetRandomIndcs, get_all_indcs
 from ..losses import CNPFLoss
 from ..utils.init import init_module
-from .checkpoint import load_run_params, params_from_flax, save_run_params
+from .checkpoint import (
+    load_run_params, load_train_state, params_from_flax, save_run_params, save_train_state,
+)
 from .evaluate import eval_loglike
 from .optim import make_optimizer
 from .state import count_parameters
@@ -56,8 +63,16 @@ def has_checkpoint(run_dir: str) -> bool:
     return os.path.exists(os.path.join(run_dir, "params.msgpack"))
 
 
-def _load(model: torch.nn.Module, run_dir: str) -> None:
-    model.load_state_dict(params_from_flax(*load_run_params(run_dir)), strict=True)
+def _load(trainer: Trainer, run_dir: str) -> None:
+    """The checkpoint's parameters and statistics, and its train state where
+    the run directory has one."""
+    trainer.model.load_state_dict(params_from_flax(*load_run_params(run_dir)), strict=True)
+    load_train_state(run_dir, trainer)
+
+
+def _save(trainer: Trainer, run_dir: str) -> None:
+    save_run_params(run_dir, trainer.model)
+    save_train_state(run_dir, trainer)
 
 
 def train_models(datasets: Dict[str, object], models: Dict[str, object], criterion=None,
@@ -127,7 +142,7 @@ def _train_single(model, criterion, splitter, data_train, data_valid, run_dir, m
                       generator=torch.Generator(device=device).manual_seed(seed))
     write_model_summary(run_dir, model)
     if (not is_retrain or is_continue_train) and has_checkpoint(run_dir):
-        _load(model, run_dir)
+        _load(trainer, run_dir)
         if not is_retrain:
             return trainer
 
@@ -145,11 +160,11 @@ def _train_single(model, criterion, splitter, data_train, data_valid, run_dir, m
             record["valid_loss"] = v
             if v < best_valid:
                 best_valid, bad_epochs = v, 0
-                save_run_params(run_dir, model)
+                _save(trainer, run_dir)
             else:
                 bad_epochs += 1
         else:
-            save_run_params(run_dir, model)
+            _save(trainer, run_dir)
         history.append(record)
         write_history(run_dir, history)
         for cb in callbacks:
@@ -161,6 +176,6 @@ def _train_single(model, criterion, splitter, data_train, data_valid, run_dir, m
             print(msg + f" ({record['dur']:.1f}s)")
         if patience is not None and bad_epochs >= patience:
             break
-    if has_checkpoint(run_dir):  # the best epoch's parameters, before the eval
-        _load(model, run_dir)
+    if has_checkpoint(run_dir):  # the best epoch's state, before the eval
+        _load(trainer, run_dir)
     return trainer

@@ -36,11 +36,15 @@ def masked_mean(t: torch.Tensor, mask: torch.Tensor, dim: int = -2) -> torch.Ten
     return (total / count.clamp_min(1.0)).to(t.dtype)
 
 
-def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
+def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1,
+                   stop_max_grad: bool = False) -> torch.Tensor:
     """Softmax over `dim` with masked-out entries at zero weight; a fully
-    masked row gives all zeros."""
+    masked row gives all zeros, and zero gradients. `stop_max_grad` takes no
+    gradient through the subtracted max, as JAX's `masked_softmax` does."""
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     m = logits.amax(dim=dim, keepdim=True)
+    if stop_max_grad:
+        m = m.detach()
     unnorm = torch.exp(logits - m) * mask.to(logits.dtype)
     return unnorm / unnorm.sum(dim=dim, keepdim=True).clamp_min(1e-30)
 

@@ -29,8 +29,9 @@ from torch import nn
 
 __all__ = [
     "variance_scaling", "kaiming_uniform_relu", "xavier_uniform", "torch_default_uniform",
-    "lecun_normal", "kaiming_normal_fanout", "hidden_relu_init", "mlp_out_init", "switchable",
-    "set_realized_init", "init_dense", "init_conv", "init_module",
+    "lecun_normal", "kaiming_normal_fanout", "hidden_relu_init", "hidden_tanh_init",
+    "xavier_uniform_tanh", "mlp_out_init", "switchable", "normal_std", "set_realized_init",
+    "init_dense", "init_conv", "init_module",
 ]
 
 # the truncation at +-2 std keeps this share of a unit normal's variance;
@@ -98,8 +99,22 @@ kaiming_normal_fanout = _switchable(_conv_kaiming_fanout, torch_default_uniform)
 
 # hidden layers followed by ReLU: intended kaiming-relu; realized torch default
 hidden_relu_init = _switchable(kaiming_uniform_relu, torch_default_uniform)
+# hidden layers followed by tanh: intended xavier with the tanh gain (5/3);
+# realized torch default
+xavier_uniform_tanh = variance_scaling(5.0 / 3.0 * 5.0 / 3.0, "fan_avg", "uniform")
+hidden_tanh_init = _switchable(xavier_uniform_tanh, torch_default_uniform)
 # MLP `out` layers: intended xavier; realized kaiming-relu
 mlp_out_init = _switchable(xavier_uniform, kaiming_uniform_relu)
+
+
+def normal_std(std: float) -> Init:
+    """N(0, std), not switchable: MultiheadAttender's per-head init."""
+
+    def _init(t, fan_in, fan_out, generator=None):
+        with torch.no_grad():
+            t.normal_(0.0, std, generator=generator)
+
+    return _init
 
 
 def switchable(intended: Init) -> Init:

@@ -62,6 +62,15 @@ the CPU (`gp_f32`), which equals the JAX package's on identical inputs to
 latent run. `--shard i/k` takes every k-th GP run from the i-th, for k
 processes side by side (each writes `--out` with its runs only).
 
+With `--gp-set` it does the same for the 57 set and attention GP runs
+(`run_report.gp_set_runs`: CNP, LNP, AttnCNP, AttnLNP, the LNP and AttnLNP
+ablation grids, `LNP_SUMO`), at `--n-gp-set` functions a run (9,984, a
+kernel's whole eval set; for `All_Kernels` 3,328 of each component), each
+latent run at its
+own eval draws (32 for LNP, 8 for AttnLNP; an NPVI-trained run from
+q(z|C,T), its targets given, as JAX's eval step samples it): about 1.4 s
+a chunk of 64 LNP functions on one CPU thread, ~4 min a 32-draw run.
+
 XLA's excess precision is turned off (`--xla_allow_excess_precision=false`)
 so that every bf16 op under jit rounds its result, as the ops read and as
 the port computes (tests/test_torch_bf16_slice.py).
@@ -265,15 +274,19 @@ def main() -> None:
     ap.add_argument("--runs", nargs="*", default=None,
                     help="run dirs (default: every GW ConvCNP run with parameters)")
     ap.add_argument("--gp", action="store_true", help="every conv-family GP run, float32")
+    ap.add_argument("--gp-set", action="store_true",
+                    help="every set and attention GP run, float32")
+    ap.add_argument("--n-gp-set", type=int, default=9984,
+                    help="functions a set or attention GP run")
     ap.add_argument("--shard", default=None, help="i/k: every k-th GP run from the i-th")
     ap.add_argument("--n-gp-cnp", type=int, default=9984,
                     help="functions a GP ConvCNP run (cheap on the CPU); a GP ConvLNP run "
                          "takes --n")
     args = ap.parse_args()
-    if args.gp:
-        from npf_gwwaveform_tpu_torch.run_report import gp_runs
+    if args.gp or args.gp_set:
+        from npf_gwwaveform_tpu_torch.run_report import gp_runs, gp_set_runs
 
-        args.runs = gp_runs(RESULTS)
+        args.runs = gp_set_runs(RESULTS) if args.gp_set else gp_runs(RESULTS)
         if args.shard:
             i, k = (int(v) for v in args.shard.split("/"))
             args.runs = args.runs[i::k]
@@ -290,7 +303,9 @@ def main() -> None:
         with open(os.path.join(run_dir, "summary.json")) as f:
             summary = json.load(f)
         if "kernel" in summary:  # a GP run: float32 only
-            n = args.n_gp_cnp if summary["model"] == "ConvCNP" else args.n
+            family = summary["model"].split("_")[0]
+            n = (args.n_gp_cnp if family == "ConvCNP" else args.n if family == "ConvLNP"
+                 else args.n_gp_set)
             out[name] = gp_f32(run_dir, n, args.latent_batch)
             print(f"{name}: n {out[name]['n']}, f32 mean LL {out[name]['f32']['mean_ll']:.3f}, "
                   f"band {out[name]['f32_bands']['mean_ll']}", flush=True)

@@ -17,7 +17,7 @@ kernel path matches. Run bf16 with
 `XLA_FLAGS=--xla_allow_excess_precision=false` for the op-by-op rounding the
 port follows (tests/test_torch_bf16_slice.py).
 
-    JAX_PLATFORMS=cpu python tests/jax_reference_training.py --gp cnp|npml|notebook
+    JAX_PLATFORMS=cpu python tests/jax_reference_training.py --gp cnp|npml|notebook|SET_NAME
         [--seed 0] [--steps 1000] [--banded] [--losses-out FILE]
 
 trains instead a GP configuration of `experiments/reproduce_gp.py` on RBF
@@ -26,7 +26,12 @@ the intended init, Adam 1e-3 decaying x10 over 100 epochs of 1,562 steps,
 clip 1.0 for ConvLNP, contexts of U{0..50} of 128 points, batch 32, the
 functions sampled inside the jitted step): `cnp` the ConvCNP, `npml` the
 headline ConvLNP (NPML, 16 draws), `notebook` the ablation's
-`ConvLNP_ELBOFalse_LatLBFalse_SigLBFalse`. It prints the 50-step means and
+`ConvLNP_ELBOFalse_LatLBFalse_SigLBFalse`; a set or attention family run
+name (`SET_NAMES`: CNP, LNP and AttnLNP trained with NPVI, AttnCNP, the
+NPML ablation variant `AttnLNP_ELBOFalse_LatLBFalse_SigLBFalse`, and
+`LNP_SUMO`, SUMO on LNP's NPML variant) that configuration, unclipped, as
+`reproduce_gp.py --model M [--ablation A | --loss sumo]` builds it. It
+prints the 50-step means and
 then the medians over the first and the last 50 steps as one JSON line: the
 fall bars `chip_smoke.py` holds the port's 1,000 graphed steps to.
 `--banded` lowers the depthwise convolutions to the JAX package's banded
@@ -55,25 +60,45 @@ from npf_gwwaveform_tpu.data import (  # noqa: E402
 from npf_gwwaveform_tpu.training import Trainer, create_train_state, make_optimizer  # noqa: E402
 
 
+# the set and attention family's configurations `--gp` takes by run name
+SET_NAMES = ("CNP", "LNP", "AttnCNP", "AttnLNP", "AttnLNP_ELBOFalse_LatLBFalse_SigLBFalse",
+             "LNP_SUMO")
+
+
+def gp_model_and_loss(gp: str):
+    """(model, criterion, clip) of a `--gp` choice, as reproduce_gp.py builds it."""
+    from npf_gwwaveform_tpu.configs import gp_model_variant
+    from npf_gwwaveform_tpu.losses import ELBOLossLNPF, NLLLossLNPF, SUMOLossLNPF
+
+    if gp == "notebook":
+        return gp_model_variant("ConvLNP", False, False, False), NLLLossLNPF(), 1.0
+    if gp in ("cnp", "npml"):
+        name = "ConvCNP" if gp == "cnp" else "ConvLNP"
+        return gp_model_1d(name), gp_criterion(name), None if gp == "cnp" else 1.0
+    if gp.endswith("_SUMO"):
+        return gp_model_variant(gp[: -len("_SUMO")], False, True, True), SUMOLossLNPF(), None
+    if "_ELBO" in gp:
+        base, flags = gp.split("_", 1)
+        elbo, lat_lb, sig_lb = (f"{k}True" in flags for k in ("ELBO", "LatLB", "SigLB"))
+        return (gp_model_variant(base, elbo, lat_lb, sig_lb),
+                ELBOLossLNPF() if elbo else NLLLossLNPF(), None)
+    return gp_model_1d(gp), gp_criterion(gp), None
+
+
 def gp_main(args) -> None:
     """The GP configuration's training (module docstring)."""
-    from npf_gwwaveform_tpu.configs import gp_model_variant
     from npf_gwwaveform_tpu.data.gp import KERNEL_CONFIGS, GPSampler
-    from npf_gwwaveform_tpu.losses import NLLLossLNPF
 
     batch = 32
     sampler = GPSampler(n_points=128, **KERNEL_CONFIGS["RBF_Kernel"])
-    name = "ConvCNP" if args.gp == "cnp" else "ConvLNP"
-    if args.gp == "notebook":
-        model, criterion = gp_model_variant("ConvLNP", False, False, False), NLLLossLNPF()
-    else:
-        model, criterion = gp_model_1d(name), gp_criterion(name)
+    model, criterion, clip = gp_model_and_loss(args.gp)
     if args.banded:  # the same model with the banded-matmul depthwise lowering
+        name = "ConvCNP" if args.gp == "cnp" else "ConvLNP"
         model = model.clone(CNNFactory=gp_model_1d(name, cnn_banded=True).CNNFactory)
     splitter = CntxtTrgtSplitter(contexts_getter=GetRandomIndcs(a=0.0, b=50),
                                  targets_getter=get_all_indcs)
     tx = make_optimizer(lr=1e-3, decay_lr=10.0, max_epochs=100, steps_per_epoch=1562,
-                        grad_clip_norm=None if args.gp == "cnp" else 1.0)
+                        grad_clip_norm=clip)
     trainer = Trainer(model, criterion, tx, splitter=splitter)
     key = jax.random.PRNGKey(args.seed)
     x0, y0 = sampler.sample(key, batch)
@@ -107,7 +132,7 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=None, help="500, or 1,000 with --gp")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--fused-mlp", action="store_true")
-    ap.add_argument("--gp", default=None, choices=("cnp", "npml", "notebook"))
+    ap.add_argument("--gp", default=None, choices=("cnp", "npml", "notebook") + SET_NAMES)
     ap.add_argument("--banded", action="store_true",
                     help="with --gp, the depthwise convs as banded matmuls (cnn_banded)")
     ap.add_argument("--losses-out", default=None, metavar="FILE",

@@ -70,11 +70,12 @@ def test_gp_builders_and_names():
                                                                                  0.01)
     cnp = gp_model_1d("ConvCNP")
     assert cnp.n_induced == 192 and cnp.cond_dim == 0
-    for name in ("CNP", "LNP", "AttnCNP", "AttnLNP"):
-        with pytest.raises(NotImplementedError):
-            gp_model_1d(name)
-    with pytest.raises(NotImplementedError):
-        gp_model_variant("LNP", True, True, True)
+    for name in ("CNP", "LNP", "AttnCNP", "AttnLNP"):  # ported since the set family's slice
+        assert type(gp_model_1d(name)).__name__ == name
+    lnp = gp_model_variant("LNP", True, True, True)
+    assert (lnp.is_q_zCct, lnp.n_z_samples_train, lnp.n_z_samples_test) == (True, 1, 32)
+    with pytest.raises(ValueError):
+        gp_model_variant("CNP", True, True, True)
     sumo = gp_model_from_summary({"model": "ConvLNP_SUMO", "kernel": "RBF_Kernel"})
     assert (sumo.z_dim, sumo.n_z_samples_train, sumo.min_sigma_pred) == (16, 16, 0.01)
 
@@ -96,8 +97,10 @@ def test_train_models_writes_the_jax_layout(tmp_path):
                        device="cpu")
     run_dir = os.path.join(tmp_path, "RBF", "ConvCNP", "run_0")
     assert set(out) == {"RBF/ConvCNP/run_0"}
+    # the port's train state (Adam, the count, the generator) where JAX writes state.msgpack
     assert sorted(os.listdir(run_dir)) == ["eval.csv", "extra_vars.msgpack", "history.json",
-                                           "model_summary.txt", "params.msgpack"]
+                                           "model_summary.txt", "params.msgpack",
+                                           "train_state.pt"]
     assert np.loadtxt(os.path.join(run_dir, "eval.csv")).shape == (4,)
     with open(os.path.join(run_dir, "history.json")) as f:
         hist = json.load(f)
@@ -130,9 +133,9 @@ def test_train_gp_and_score_gp_on_the_cpu(tmp_path, capsys):
     """`train_gp --device cpu`, two steps of the GP ConvCNP (the JAX run
     layout and `reproduce_gp.py`'s summary fields), then `score_gp` on it
     with `--out` (never the run directory); `--bf16` refused."""
-    summary = train_gp.main(["--device", "cpu", "--epochs", "1", "--fns-per-epoch", "64",
-                             "--n-test", "4", "--norm-eps", "1e-5", "--init", "realized",
-                             "--out", str(tmp_path)])
+    summary = train_gp.main(["--device", "cpu", "--model", "ConvCNP", "--epochs", "1",
+                             "--fns-per-epoch", "64", "--n-test", "4", "--norm-eps", "1e-5",
+                             "--init", "realized", "--out", str(tmp_path)])
     run_dir = os.path.join(tmp_path, "RBF_Kernel", "ConvCNP", "run_0")
     assert sorted(os.listdir(run_dir)) == ["eval.csv", "extra_vars.msgpack", "history.json",
                                            "model_summary.txt", "params.msgpack", "summary.json"]

@@ -1,8 +1,10 @@
 """The port runs without JAX: with jax, flax, msgpack and the JAX package made
 unimportable, every module of the port and chip_smoke.py's module-level code
 import, the scorer runs on the CPU, and `train_gw` trains 2 steps on the CPU
-and scores its run. Also: chip_smoke.py fails, printing no result, where it
-cannot run."""
+and scores its run; the set and attention family's modules (attention,
+self-attention, CNP, LNP, AttnCNP, AttnLNP) import, `score_gp` scores an
+AttnLNP run and `train_gp` trains 2 steps of LNP. Also: chip_smoke.py
+fails, printing no result, where it cannot run."""
 
 import json
 import os
@@ -56,6 +58,27 @@ assert not loaded, loaded
 """
 
 
+_SET_ISOLATED = f"""
+import sys
+for name in {_BLOCKED!r}:
+    sys.modules[name] = None
+import json
+from npf_gwwaveform_tpu_torch import score_gp, train_gp
+line = score_gp.main(["--run-dir", {os.path.join(REPO, "results", "RBF_Kernel", "AttnLNP",
+                                                  "run_0")!r},
+                      "--n-test", "2", "--device", "cpu"])
+train_gp.N_VALID = 16
+summary = train_gp.main(["--device", "cpu", "--model", "LNP", "--epochs", "1",
+                         "--fns-per-epoch", "64", "--n-test", "2", "--out", sys.argv[1]])
+for name in ("ops.attention", "ops.selfattn", "models.np", "models.attnnp"):
+    assert "npf_gwwaveform_tpu_torch." + name in sys.modules, name
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and m.split(".")[0] in {_BLOCKED!r}]
+assert not loaded, loaded
+print(json.dumps({{"score": line, "steps": summary["steps"], "ll": summary["mean_test_ll"]}}))
+"""
+
+
 def _env():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("PYTHONSTARTUP", None)
@@ -79,6 +102,15 @@ def test_train_gw_runs_without_jax(tmp_path):
     assert res["steps"] == 2 and isinstance(res["test_ll_per_wf"], float)
     for name in ("params.msgpack", "extra_vars.msgpack", "history.json", "summary.json"):
         assert os.path.exists(os.path.join(res["run_dir"], name)), name
+
+
+def test_set_family_scores_and_trains_without_jax(tmp_path):
+    proc = subprocess.run([sys.executable, "-c", _SET_ISOLATED, str(tmp_path)], cwd=REPO,
+                          env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["score"]["n"] == 2 and res["score"]["model"] == "AttnLNP"
+    assert res["steps"] == 2 and isinstance(res["ll"], float)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

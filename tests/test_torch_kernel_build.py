@@ -79,6 +79,34 @@ def test_library_name_follows_every_source_and_header(tmp_path, edited):
     assert after != before and os.path.dirname(after) == _build.BUILD_DIR
 
 
+def test_build_compiles_each_source_at_once_then_links(tmp_path, monkeypatch):
+    """`build` starts one `nvcc -c` a source, all before any ends, links the
+    objects with one more call into the library, and leaves no object or
+    temporary file behind (a stand-in nvcc records the calls)."""
+    log = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo \"$$ start $*\" >> {log}\n"
+                    "sleep 0.3\n"
+                    "out=''; prev=''\n"
+                    "for a in \"$@\"; do [ \"$prev\" = -o ] && out=$a; prev=$a; done\n"
+                    "echo object > \"$out\"\n"
+                    f"echo \"$$ end\" >> {log}\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    res = _build.build()
+    lines = log.read_text().splitlines()
+    starts = [ln for ln in lines if " start " in ln]
+    compiles, links = starts[:-1], starts[-1:]
+    assert len(compiles) == len(_build.sources()) and all(" -c " in c for c in compiles)
+    assert all("-shared" not in c for c in compiles) and "-shared" in links[0]
+    first_end = next(i for i, ln in enumerate(lines) if ln.endswith(" end"))
+    assert first_end >= len(compiles)  # every compile started before the first ended
+    assert os.path.basename(res.path) == os.path.basename(_build.library_path())
+    assert os.listdir(tmp_path / "build") == [os.path.basename(res.path)]
+
+
 def test_summary_metrics_are_reproduce_gws():
     rng = np.random.default_rng(0)
     ll = rng.normal(890, 20, 300).astype(np.float32)
