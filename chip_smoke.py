@@ -129,9 +129,10 @@ Phases, each announced with the seconds elapsed:
      K2-bf16 and K3-bf16 at O = 4. For each: phase 8's graph
      checks (the norms before the clip printed; the clip must bind in a
      long path's checked steps); graphed steps at batch 32 through
-     `train_gw.train` (`FAMILY_RUNS`: 500 or 1,000 for the 1 s paths and
-     1,000 for the frequency-domain ones from seeds 0, 1 and 2, 300 for the
-     2 s ones from seed 0), each draw printing its median loss over the first
+     `train_gw.train` (`FAMILY_RUNS`: 300-500 for the 1 s paths and 500
+     for the frequency-domain ones in float32, 500-1,000 in bf16, from seeds
+     0, 1 and 2; 200 and 300 for the 2 s ones from seed 0), each draw
+     printing its median loss over the first
      and the last 50 steps, of which one must fall `FAMILY_FALL` nats; one
      step of seed 0's trained model on the kernel path against the plain
      path; the path's launches from a traced replay of seed 0's graph. The
@@ -153,7 +154,7 @@ Phases, each announced with the seconds elapsed:
      other families (graphed against eager bit for bit, a traced replay
      holding K1 two or three times and K2/K3 never, the loss falling by
      its bar and its last 50 steps' median at or below its level over
-     1,000 steps, one kernel-path step against the plain path).
+     300-500 steps, one kernel-path step against the plain path).
  17. the GP paths' kernels: K1 at the GP shapes (128 points a function at
      sorted x ~ U(-1, 1), not evenly spaced, and the 192-point grid): the
      context (U{0..50} real) onto the grid at B = 256 and 32, the grid onto
@@ -206,7 +207,42 @@ Phases, each announced with the seconds elapsed:
      eager bit for bit, 1,000 graphed steps from seed 0 held to bars from
      the JAX package's own runs, one step on the kernel path against the
      plain path, a traced replay's launches: K2 and K3).
-Phases 17-23 run after phase 16's scoring and before phase 14's training
+ 24. the grid and image family's kernels: K2 and K3 at the image decoders'
+     rows (B x H x W, times the z draws) with the runs' own weights: K2 at
+     32,768 rows (GridConvCNP and CNP at 32x32, zsmms on its 32x32 test
+     canvas), 12,800 (zsmms' 20x20 training canvas), O = 6 on the RGB
+     corpora (rgb_digits at 32,768; the XL model at 128x128, 524,288),
+     262,144 (AttnLNP's 8 draws) and 1,048,576 (LNP's 32, at O = 2 and 6);
+     K3 at the train steps' rows (12,800 to 524,288, O = 2 and 6); each at
+     phases 4-5's bars, two launches bit-identical;
+ 25. the 20 scorable image runs in `results/` (`digits`, `rgb_digits`,
+     `rgb_digits128`, `zsmms`: GridConvCNP, GridConvLNP, GridConvCNPXL,
+     CNP, LNP, AttnCNP, AttnLNP; `zsmms/GridConvCNP/run_0` has no BatchNorm
+     statistics, ROADMAP), each scored with `score_img.score_run` over its
+     whole test set (160, 256 or 1,024 images), every batch after the first
+     replayed from its CUDA graph, K2 once a batch (none for GridConvLNP),
+     within the band of the JAX package's eval draws through the port's
+     CPU forward (`tests/jax_bf16_family_gaps.json`), the record's band
+     printed beside; for one run of each family (the six `digits` runs,
+     zsmms GridConvCNP `run_1`, the XL `run_0`) the graphed scores against
+     eager ones per image, a traced replay's launches and one batch timed
+     eager and replayed;
+ 26. one batch of each of those runs on the kernel path against the plain
+     path;
+ 27. `score_img --diag` on `zsmms/GridConvCNP/run_1`, its four rows beside
+     `zsmms_diag.json`'s, in the record's order;
+ 28. `reproduce_img.py`'s configurations trained from seed 0 (GridConvCNP,
+     GridConvLNP, CNP, LNP, AttnCNP, AttnLNP on `digits`, GridConvCNP on
+     `zsmms` and on `rgb_digits`): three graphed steps bit-identical to
+     three eager ones, 300 graphed steps (200 for the attention models)
+     held to fall and
+     level bars from the JAX package's runs and the seeds' spread
+     (`IMG_JAX`, `IMG_SEED_LAST`), seeds 1-2 as
+     fallbacks, a traced replay's launches (K2 and K3, none for
+     GridConvLNP); and GridConvCNPXL on `rgb_digits128`, 20 graphed steps
+     with its blocks stored and 5 rematerialised, the peak memory and step
+     time of each.
+Phases 17-28 run after phase 16's scoring and before phase 14's training
 loop. It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -230,11 +266,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from npf_gwwaveform_tpu_torch import _build
 from npf_gwwaveform_tpu_torch import score as score_mod
-from npf_gwwaveform_tpu_torch import score_gp, train_gp, train_gw
+from npf_gwwaveform_tpu_torch import score_gp, score_img, train_gp, train_gw, train_img
 from npf_gwwaveform_tpu_torch.configs import (
     SET_MODELS, gw_model_from_summary, gw_train_summary, train_config,
 )
 from npf_gwwaveform_tpu_torch.data.gp import sample_covariance_z
+from npf_gwwaveform_tpu_torch.data.images import get_train_test_img_dataset
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.kernel_measure import (
     K2_BF16_SUM_TOL, K2_CASES, cublas_chain_ms, k1_bound, k1_inputs, k2_bf16_ok, k2_bf16_report,
@@ -249,7 +286,7 @@ from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
 )
 from npf_gwwaveform_tpu_torch.ops.kernels.setconv import setconv_exprbf_fwd, setconv_exprbf_plain
 from npf_gwwaveform_tpu_torch.run_report import (
-    gp_band, gp_runs, gp_set_runs, recorded_scores, score_bands, scored_runs,
+    gp_band, gp_runs, gp_set_runs, img_runs, recorded_scores, score_bands, scored_runs,
 )
 from npf_gwwaveform_tpu_torch.score import (
     batch_graph, eval_splitter, load_model, make_eval_batch, read_run_thetas, run_generator,
@@ -415,27 +452,44 @@ BF16_GAP_TOL, BF16_GAP_SES = 0.3, 3.0
 # within the first 50); the CPU rehearsals of seed 0 rose with k=37 and the
 # UnetCNN. So the 1 s paths take seeds 0-2 and the sizes below; the 2 s
 # paths fell 3,800-5,900 nats over 300 steps in each of six draws
+# (name, run, (float32 steps, bf16 steps), seeds). The depths were cut to
+# keep the call within its time once the image phases came in:
+# each float32 path, and both dtypes of the latent paths (whose only kernel
+# is K1, in float32 in either dtype), to the steps at which seed 0's
+# 50-step means on the H100 in an earlier call had met their bars with room
+# (1 s paths 300-500 of 500-1,000, dilated's kept, the 2 s paths 200 of
+# 300, NPML and the
+# unbounded scale 500 of 1,000, ELBO 300 of 1,000). The other bf16 paths
+# keep the depths they had: their kernel-path step is compared with the
+# plain path on seed 0's trained model without `rounding_grads`' allowance,
+# and at 300 steps the k=37 one differs by 0.287 of its largest context
+# length-scale gradient (bar 0.1) on batch 4. That is the plain path's own
+# rounding: half an ulp at K1's float32 outputs alone moves it by 0.282
+# there, while on the 11 other trained models and batches (seeds 0-2, 300
+# and 500 steps, batches 4 and 5) the worst leaf is 0.0064-0.0105
+# (tests/chip_seed_spread.py, one call on the H100; PERF.md
+# section 7)
 FAMILY_SEEDS = (0, 1, 2)
 FAMILY_RUNS = (
-    ("additive", os.path.join(RESULTS, "GW_time_cond_ctx32", "ConvCNP", "run_0"), 1000,
+    ("additive", os.path.join(RESULTS, "GW_time_cond_ctx32", "ConvCNP", "run_0"), (300, 1000),
      FAMILY_SEEDS),
     ("dilated", os.path.join(RESULTS, "GW_time_cond_film_ctx64_d128_dil1-1-2-4-8", "ConvCNP",
-                             "run_0"), 500, FAMILY_SEEDS),
-    ("k37", os.path.join(RESULTS, "GW_time_cond_film_ctx64_d128_k37", "ConvCNP", "run_0"), 500,
-     FAMILY_SEEDS),
+                             "run_0"), (500, 500), FAMILY_SEEDS),
+    ("k37", os.path.join(RESULTS, "GW_time_cond_film_ctx64_d128_k37", "ConvCNP", "run_0"),
+     (300, 500), FAMILY_SEEDS),
     ("unet", os.path.join(RESULTS, "GW_time_cond_film_ctx192_d128_unet", "ConvCNP", "run_0"),
-     1000, FAMILY_SEEDS),
+     (500, 1000), FAMILY_SEEDS),
     ("long k37", os.path.join(RESULTS, "GW_time_cond_film_ctx1024_d512_k37_T2s_np2048_pallas",
-                              "ConvCNP", "run_1"), LONG_TRAIN_STEPS, (0,)),
+                              "ConvCNP", "run_1"), (200, LONG_TRAIN_STEPS), (0,)),
     ("long unet", os.path.join(RESULTS, "GW_time_cond_film_ctx1024_d512_unet_T2s_np2048_pallas",
-                               "ConvCNP", "run_0"), LONG_TRAIN_STEPS, (0,)),
+                               "ConvCNP", "run_0"), (200, LONG_TRAIN_STEPS), (0,)),
     # the frequency-domain configurations (phase 15)
-    ("freq film", FREQ_FILM, 1000, FAMILY_SEEDS),
-    ("freq", FREQ_UNCOND, 1000, FAMILY_SEEDS),
+    ("freq film", FREQ_FILM, (500, 1000), FAMILY_SEEDS),
+    ("freq", FREQ_UNCOND, (500, 1000), FAMILY_SEEDS),
     # the latent configurations (phase 16)
-    ("latent npml", LATENT_NPML, 1000, FAMILY_SEEDS),
-    ("latent elbo", LATENT_ELBO, 1000, FAMILY_SEEDS),
-    ("latent latlbF", LATENT_LATLBF, 1000, FAMILY_SEEDS),
+    ("latent npml", LATENT_NPML, (500, 500), FAMILY_SEEDS),
+    ("latent elbo", LATENT_ELBO, (300, 300), FAMILY_SEEDS),
+    ("latent latlbF", LATENT_LATLBF, (500, 500), FAMILY_SEEDS),
 )
 FAMILY_CLIP = 1.0  # the long runs' grad_clip_norm
 FAMILY_FALL = {"additive": 150.0, "dilated": 250.0, "k37": 300.0, "unet": 300.0,
@@ -532,6 +586,107 @@ SET_JAX_MEDIANS = {"set cnp": (173.71, 143.69), "set lnp": (183.92, 158.24),
 GP_FALL.update({k: round((a - b) / 2, 1) for k, (a, b) in SET_JAX_MEDIANS.items()})
 GP_LEVEL.update({k: round(b + 50.0, 1) for k, (a, b) in SET_JAX_MEDIANS.items()})
 GP_TRAIN_CALL.update({name: (0, 1, 1, 0, 0) for name, _ in SET_TRAIN})
+
+# ---- the grid and image family's paths (phases 24-28): the 20 scorable
+# image runs (`run_report.img_runs`; zsmms/GridConvCNP/run_0 has no
+# BatchNorm statistics, ROADMAP), K2 in every forward of GridConvCNP,
+# GridConvCNPXL and the four point models and K3 in every step of them
+# (GridConvLNP's decoder is a Dense), at B x H x W (x n_z) rows
+IMG_RUNS = tuple(img_runs(RESULTS, scored=True))
+assert len(IMG_RUNS) == 20, IMG_RUNS
+IMG_ZSMMS = os.path.join(RESULTS, "zsmms", "GridConvCNP", "run_1")
+IMG_XL = os.path.join(RESULTS, "rgb_digits128", "GridConvCNPXL", "run_0")
+# one run of each family checked in depth: graphed scores against eager
+# ones, a traced replay, one batch on the kernel path against the plain path
+IMG_FAMILIES = {**{os.path.join(RESULTS, "digits", m, "run_0"): f"img {m.lower()}"
+                   for m in ("GridConvCNP", "GridConvLNP", "CNP", "LNP", "AttnCNP", "AttnLNP")},
+                IMG_ZSMMS: "img zsmms", IMG_XL: "img xl"}
+# graphed against eager scoring, per image: within IMG_GRAPH_LL_RTOL of the
+# image's |LL| (a few float32 roundings; the LLs reach 7e4 an image)
+IMG_GRAPH_LL_RTOL = 3e-7
+# zsmms_diag.py's four rows of zsmms/GridConvCNP/run_1 (the JAX package's
+# draws, printed beside the port's)
+with open(os.path.join(IMG_ZSMMS, "zsmms_diag.json")) as _f:
+    IMG_DIAG_JAX = json.load(_f)
+IMG_DIAG_ROWS = ("test_canvas", "train_canvas", "test_canvas_batchstats", "test_canvas_adapted")
+# phase 28: reproduce_img.py's configurations trained from seed 0 (seeds 1-2
+# fallbacks) for IMG_TRAIN_STEPS graphed steps at batch 32 (its defaults:
+# 50 epochs of len(train) // 32 steps for the decay, clip 1.0), each held to
+# a fall bar (half the JAX run's fall) and a level bar (the JAX run's last
+# value plus a margin, below). CNP, LNP, and GridConvCNP on digits and on
+# zsmms: the medians over the first and the last 50 of 300 steps of the
+# JAX package's own run, the GP paths' rule (tests/jax_reference_training.py
+# --img NAME [--dataset zsmms], seed 0, CPU; 7-9 s a GridConvCNP step on six
+# threads). The others: GridConvLNP's 16 draws and the attention models'
+# 1,024-point self-attention take a minute or more a JAX step here, so
+# their bars come from their runs' own history.json, the 100-step means at
+# steps 100 and 300 (200 for the attention models), against the port's own
+# 100-step means (those runs decayed over 400 epochs, not 50: the learning
+# rate at step 300 is 0.966 of the initial, not 0.76). The BatchNorm'd grid
+# models blow up over their first steps, to 1e7-1e8 nats in the port and
+# in the runs' histories (JAX's CPU zsmms run did not), and differently
+# from call to call, so that their first window measures the blow-up, not
+# training: their falls run from the second window on (the median over
+# steps 101-150, the 100-step mean at step 200). PERF.md section 6,
+# written before the call.
+IMG_TRAIN_STEPS = 300
+# (name, model, dataset, steps): the attention models 200 steps (a step
+# takes 75-130 ms on the H100), their bars at history steps 100 and 200
+IMG_TRAIN = (("img gridconvcnp", "GridConvCNP", "digits", IMG_TRAIN_STEPS),
+             ("img gridconvlnp", "GridConvLNP", "digits", IMG_TRAIN_STEPS),
+             ("img cnp", "CNP", "digits", IMG_TRAIN_STEPS),
+             ("img lnp", "LNP", "digits", IMG_TRAIN_STEPS),
+             ("img attncnp", "AttnCNP", "digits", 200), ("img attnlnp", "AttnLNP", "digits", 200),
+             ("img zsmms", "GridConvCNP", "zsmms", IMG_TRAIN_STEPS),
+             ("img rgb", "GridConvCNP", "rgb_digits", IMG_TRAIN_STEPS))
+# (statistic, JAX's first value, JAX's last value): "median50" the medians
+# over the first 50 steps and the last 50, "median101" over steps 101-150
+# and the last 50, "mean100" the first and the last 100-step means,
+# "mean200" the 100-step means at steps 200 and 300
+IMG_JAX = {"img cnp": ("median50", -6.05, -231.85),
+           "img lnp": ("median50", 112.15, -236.18),
+           "img gridconvcnp": ("median101", 275.55, -175.56),
+           "img gridconvlnp": ("mean200", 6.2, -224.8),
+           "img attncnp": ("mean100", 29.0, -171.1),
+           "img attnlnp": ("mean100", -0.7, -170.7),
+           "img zsmms": ("median101", 359.86, -23.01),
+           "img rgb": ("mean200", -1245.2, -1862.8)}
+# the last values by each bar's statistic of the port's own seeds 0, 1 and
+# 2 (tests/chip_seed_spread.py, one call on the H100, PERF.md
+# section 6) and of JAX's where its CPU runs are cheap enough
+# (tests/jax_reference_training.py --img NAME --seed S, S = 0-2): the
+# level bar's margin is twice the larger range of the two, but at most
+# half JAX's fall, so that each level bar lies at least half JAX's fall
+# below JAX's first value
+IMG_SEED_LAST = {"img cnp": ((-310.26, -299.95, -285.67), (-231.85, -360.25, -224.66)),
+                 "img lnp": ((-205.98, -173.76, -262.27), (-236.18, -182.06, -257.07)),
+                 "img gridconvcnp": ((-335.9, -10.05, -109.22), ()),
+                 "img gridconvlnp": ((-416.59, -545.54, -308.07), ()),
+                 "img attncnp": ((-189.89, 102.52, -105.24), ()),
+                 "img attnlnp": ((-109.88, -98.03, -142.19), ()),
+                 "img zsmms": ((-20.85, 56.9, -40.97), ()),
+                 "img rgb": ((-2412.73, -1690.59, -2254.98), ())}
+IMG_FALL = {k: round((a - b) / 2, 1) for k, (_, a, b) in IMG_JAX.items()}
+IMG_LEVEL = {k: round(b + min(2 * max(max(v) - min(v) for v in IMG_SEED_LAST[k] if v),
+                               (a - b) / 2), 1)
+             for k, (_, a, b) in IMG_JAX.items()}
+assert all(IMG_LEVEL[k] < a for k, (_, a, _) in IMG_JAX.items())
+# GridConvCNPXL on rgb_digits128: 20 graphed steps with the blocks'
+# activations stored, 5 rematerialised (the peak memory of each)
+IMG_XL_STEPS, IMG_XL_REMAT_STEPS = 20, 5
+
+
+def img_call(model: str) -> tuple:
+    """The launches (K1, K2, K3, K2-bf16, K3-bf16) of one scoring batch of an
+    image model: K2 once, none for GridConvLNP (a Dense decoder)."""
+    return (0, 0, 0, 0, 0) if model == "GridConvLNP" else (0, 1, 0, 0, 0)
+
+
+def img_train_call(model: str) -> tuple:
+    """The launches of one image train step: K2 and K3 once, none for
+    GridConvLNP."""
+    return (0, 0, 0, 0, 0) if model == "GridConvLNP" else (0, 1, 1, 0, 0)
+
 
 _T0 = time.perf_counter()
 
@@ -1886,6 +2041,326 @@ def check_set_kernels(gen) -> dict:
     return {"K2": k2, "K3": k3}
 
 
+def check_img_kernels(gen) -> dict:
+    """Phase 24: K2 and K3 at the image paths' rows with the runs' own
+    decoder weights (C = H = 128, L1 = 3; O = 2, or 6 on the RGB corpora):
+    K2 at the scoring batches (32 images: GridConvCNP 32 x 32 x 32 = 32,768
+    rows, zsmms on its 32x32 test canvas, rgb_digits at O = 6, the XL model
+    at 32 x 128 x 128 = 524,288, CNP 32,768, AttnLNP's 8 draws 262,144,
+    LNP's 32 draws 1,048,576 at O = 2 and at O = 6) and the train steps
+    (zsmms' 20x20 training canvas 12,800), K3 at the train steps (32,768 at
+    O = 2 and 6; zsmms 12,800; XL 524,288; LNP and AttnLNP one draw,
+    32,768); each at phases 4-5's bars, two launches bit-identical, timed
+    from a CUDA graph beside the bound. -> {"K2": rows, "K3": rows}."""
+    runs = {"cnp": ("digits", "GridConvCNP"), "zsmms": ("zsmms", "GridConvCNP", "run_1"),
+            "rgb": ("rgb_digits", "GridConvCNP"), "xl": ("rgb_digits128", "GridConvCNPXL"),
+            "set cnp": ("digits", "CNP"), "set lnp": ("digits", "LNP"),
+            "set attnlnp": ("digits", "AttnLNP"), "rgb lnp": ("rgb_digits", "LNP")}
+    w = {}
+    for k, (d, m, *r) in runs.items():
+        w[k] = chain_weights(score_img.load_model(
+            os.path.join(RESULTS, d, m, r[0] if r else "run_0"), "cuda").decoder.module)
+    img, xl, zs = 32 * 32 * 32, 32 * 128 * 128, 32 * 20 * 20
+
+    def k2(name, M, key, O):
+        return (f"decoder img {name}", k2_inputs(M, 128, 128, 3, O, True, gen, w[key]), False)
+
+    def k3(name, M, key, O):
+        return (f"decoder img {name}", k3_inputs(M, 128, 128, 3, O, True, gen, w[key][:5]),
+                False)
+
+    with torch.inference_mode():
+        k2_rows = check_k2([
+            k2("gridconvcnp", img, "cnp", 2), k2("zsmms", img, "zsmms", 2),
+            k2("zsmms train", zs, "zsmms", 2), k2("rgb", img, "rgb", 6), k2("xl", xl, "xl", 6),
+            k2("cnp", img, "set cnp", 2), k2("attnlnp", 8 * img, "set attnlnp", 2),
+            k2("lnp", 32 * img, "set lnp", 2), k2("rgb lnp", 32 * img, "rgb lnp", 6),
+        ])
+        k3_rows = check_k3([
+            k3("gridconvcnp train", img, "cnp", 2), k3("zsmms train", zs, "zsmms", 2),
+            k3("rgb train", img, "rgb", 6), k3("xl train", xl, "xl", 6),
+            k3("lnp train", img, "set lnp", 2), k3("attnlnp train", img, "set attnlnp", 2),
+        ])
+    return {"K2": k2_rows, "K3": k3_rows}
+
+
+def check_img_scores(smi) -> tuple:
+    """Phases 25-26: each of the 20 scorable image runs scored with
+    `score_img.score_run` over its whole test set (160, 256 or 1,024
+    images), every batch after the first replayed from its CUDA graph, held
+    to the band of the JAX package's eval draws through the port's CPU
+    forward (`tests/jax_bf16_family_gaps.json`), the record's band printed
+    beside; the wrappers' counts at the eager batch and the capture. For one
+    run of each family (`IMG_FAMILIES`): the graphed scores against eager
+    ones, the launches of a traced replay, one batch replayed and eager,
+    timed. -> ({family: `path_launches`}, {family: (eager ms, replay ms)})."""
+    misses, paths, batch_ms = [], {}, {}
+    for run_dir in IMG_RUNS:
+        name = os.path.relpath(run_dir, RESULTS)
+        summary = score_img.read_summary(run_dir)
+        call = img_call(summary["model"])
+        reset_counts()
+        out = score_img.score_run(run_dir, device="cuda")
+        counted = counts()
+        n_batches = out["n"] // score_img.EVAL_BATCH
+        graph = out["graph"]
+        if graph is None or graph.replays != n_batches - 1:
+            raise AssertionError(f"{name}: scored without its batch graph")
+        if counted != tuple(2 * c for c in call):
+            raise AssertionError(f"{name}: wrapper launches {counted} at the eager batch and the "
+                                 f"capture, not {tuple(2 * c for c in call)}")
+        if not (out["n"] == summary["n_test"] and np.isfinite(out["ll"]).all()):
+            raise AssertionError(f"{name}: non-finite or missing per-image results")
+        lo, hi = BF16_GAPS[name]["f32_bands"]["mean_ll"]
+        r0, r1 = gp_band(run_dir)
+        inside = lo <= out["mean_ll"] <= hi
+        print(f"{name}: mean LL {out['mean_ll']:.3f} over {out['n']} images in [{lo:.2f}, "
+              f"{hi:.2f}] (JAX's eval draws, the port's CPU forward, "
+              f"{BF16_GAPS[name]['f32']['mean_ll']:.3f}) {inside}; recorded "
+              f"{summary['mean_test_ll']:.2f}, its band [{r0:.2f}, {r1:.2f}]: inside "
+              f"{r0 <= out['mean_ll'] <= r1}; launches {counted}; {out['seconds']:.2f}s")
+        if not inside:
+            misses.append(name)
+        kind = IMG_FAMILIES.get(run_dir)
+        if kind is not None:
+            paths[kind] = path_launches(f"{kind} scoring", counted, graph, 2, call)
+            t = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                graph.replay()
+                torch.cuda.synchronize()
+                t.append(time.perf_counter() - t0)
+            reset_counts()
+            eager = score_img.score_run(run_dir, device="cuda", graphed=False)
+            if counts() != tuple(n_batches * c for c in call) or eager["graph"] is not None:
+                raise AssertionError(f"{name}: eager scoring launched {counts()}")
+            diff = np.abs(out["ll"] - eager["ll"])
+            bar = IMG_GRAPH_LL_RTOL * np.maximum(np.abs(eager["ll"]), 1.0)
+            batch_ms[kind] = (1e3 * eager["seconds"] / n_batches, 1e3 * float(np.median(t)))
+            print(f"{name}: graphed against eager scoring, largest LL difference "
+                  f"{diff.max():.3e} (bar {IMG_GRAPH_LL_RTOL:g} of each |LL|: worst ratio "
+                  f"{(diff / bar).max() * IMG_GRAPH_LL_RTOL:.2e}); one batch of 32 replayed "
+                  f"{batch_ms[kind][1]:.3f} ms (median of 5, host clock), eager "
+                  f"{batch_ms[kind][0]:.3f} ms (mean, its first batch included); {smi}")
+            if (diff > bar).any():
+                raise AssertionError(f"{name}: graphed scoring differs from eager scoring")
+            del eager
+        del out, graph
+        release()
+    print(f"{len(IMG_RUNS) - len(misses)} of {len(IMG_RUNS)} image runs inside the bands of JAX's "
+          f"eval draws through the port's CPU forward ({smi})")
+    if misses:
+        raise AssertionError(f"image runs outside their bands: {', '.join(misses)}")
+    return paths, batch_ms
+
+
+def check_img_batch(run_dir, smi) -> dict:
+    """Phase 26: the first 32 test images of an image run on the kernel path
+    against the plain path, the masks and z draws from generators seeded
+    alike: loc and scale within `PATH_TOL`."""
+    summary = score_img.read_summary(run_dir)
+    _, test = get_train_test_img_dataset(summary["dataset"])
+    splitter = score_img.splitter_for(summary["model"], score_img.test_upscale(test))
+    y = test.images[:score_img.EVAL_BATCH].cuda()
+    outs = {}
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for label, use_kernels in (("kernel", True), ("plain", False)):
+            model = score_img.load_model(run_dir, "cuda", use_kernels=use_kernels)
+            g = torch.Generator(device="cuda").manual_seed(1)
+            ll, o = score_img.score_batch(model, splitter, g, y)
+            outs[label] = (o.p_yCc.loc.clone(), o.p_yCc.scale.clone(), ll.clone())
+            del model, o
+    loc_err, scale_err, ll_err = ((a - b).abs().max().item()
+                                  for a, b in zip(outs["kernel"], outs["plain"]))
+    print(f"{os.path.relpath(run_dir, RESULTS)}: one batch of 32 images x "
+          f"{outs['kernel'][0].shape[0]} draws, kernel vs plain path: loc {loc_err:.3e}, scale "
+          f"{scale_err:.3e}, LL {ll_err:.3e}; {smi}")
+    if not (loc_err <= PATH_TOL and scale_err <= PATH_TOL):
+        raise AssertionError(f"{run_dir}: the kernel path disagrees with the plain path")
+    return dict(loc_err=loc_err, scale_err=scale_err, ll_err=ll_err)
+
+
+def check_img_diag(smi) -> dict:
+    """Phase 27: `score_img --diag` on zsmms/GridConvCNP/run_1, its four rows
+    beside `zsmms_diag.json`'s (the JAX package's draws): finite, and in
+    the record's order (the training canvas above the test canvas, each
+    BatchNorm remedy above the frozen statistics)."""
+    t0 = time.perf_counter()
+    res = score_img.diag(IMG_ZSMMS, "cuda")
+    print("zsmms/GridConvCNP/run_1 diagnosis, port (zsmms_diag.json): " + ", ".join(
+        f"{k} {res[k]:.2f} ({IMG_DIAG_JAX[k]:.2f})" for k in IMG_DIAG_ROWS)
+        + f"; {time.perf_counter() - t0:.2f}s; {smi}")
+    ordered = (res["train_canvas"] > res["test_canvas"]
+               and min(res["test_canvas_batchstats"], res["test_canvas_adapted"])
+               > res["test_canvas"])
+    if not (all(np.isfinite(res[k]) for k in IMG_DIAG_ROWS) and ordered):
+        raise AssertionError("the zsmms diagnosis is not finite or not in the record's order")
+    release()
+    return res
+
+
+def check_img_graph_train(model, dataset, images) -> None:
+    """Phase 28: three graphed train steps of an image configuration against
+    three eager steps from a trainer with the same init and generator seed:
+    losses, parameters and statistics bit-identical."""
+    y_dim = images.shape[-1]
+    sample = train_img.image_sampler(images, TRAIN_BATCH)
+    eager = train_img.build_trainer(model, dataset, y_dim, 50, 50, "cuda", seed=0)
+    e_losses = torch.stack([eager._update(*sample(eager.state.generator))["loss"]
+                            for _ in range(3)])
+    e_state = {k: t.clone() for k, t in eager.model.state_dict().items()}
+    del eager  # one trainer's activations at a time (the attention models' are large)
+    release()
+    graphed = train_img.build_trainer(model, dataset, y_dim, 50, 50, "cuda", seed=0)
+    g_losses = graphed.train_steps_generated(sample, 3)
+    same = torch.equal(e_losses, g_losses) and all(
+        torch.equal(e_state[k], t) for k, t in graphed.model.state_dict().items())
+    print(f"{model} on {dataset}: three graphed steps against three eager ones, losses "
+          f"{g_losses.tolist()}, parameters and statistics bit-identical {same}")
+    if not same:
+        raise AssertionError(f"{model} on {dataset}: the graphed step differs from the eager one")
+    del graphed, e_state
+    release()
+
+
+def _img_stat(kind, losses) -> tuple:
+    """(first, last) of a 300-step loss trajectory by `IMG_JAX`'s statistic."""
+    first = {"median50": lambda: np.median(losses[:50]),
+             "median101": lambda: np.median(losses[100:150]),
+             "mean100": lambda: losses[:100].mean(), "mean200": lambda: losses[100:200].mean()}
+    last = np.median(losses[-50:]) if kind.startswith("median") else losses[-100:].mean()
+    return float(first[kind]()), float(last)
+
+
+def check_img_family(name, model, dataset, steps, smi) -> dict:
+    """Phase 28, one image training path (`IMG_TRAIN`): the graphed step
+    against the eager one (`check_img_graph_train`); `steps` graphed steps
+    at batch 32 from seed 0 (seeds 1 and 2 only while no draw has met the
+    bars) through `train_img.train`, each draw's first and last value
+    by its bars' statistic (`IMG_JAX`) held to `IMG_FALL` and `IMG_LEVEL`;
+    the launches of a traced replay of seed 0's graph. -> the path's
+    numbers."""
+    train_ds, _ = get_train_test_img_dataset(dataset)
+    images = train_ds.images.cuda()
+    check_img_graph_train(model, dataset, images)
+    sched = train_img.schedule(len(train_ds), 50, TRAIN_BATCH, steps)
+    kind = IMG_JAX[name][0]
+    draws = []
+    for seed in FAMILY_SEEDS:
+        trainer = train_img.build_trainer(model, dataset, images.shape[-1], 50,
+                                          sched["steps_per_epoch"], "cuda", seed)
+        reset_counts()
+        history, losses, seconds = train_img.train(trainer, images, TRAIN_BATCH, sched,
+                                                   verbose=False)
+        counted = counts()
+        (graph,) = trainer.graphs.values()
+        losses = losses.cpu().numpy()
+        first, last = _img_stat(kind, losses)
+        step_ms = 1e3 * float(np.median(np.diff([0.0] + [h["dur"] for h in history])[1:])) \
+            / sched["chunk"]
+        met = first - last >= IMG_FALL[name] and last <= IMG_LEVEL[name]
+        print(f"{name}, seed {seed}: {sched['steps']} graphed steps in {seconds:.2f}s, "
+              f"{graph.replays} replays; 50-step mean losses: "
+              + ", ".join(f"{v:.1f}" for v in losses.reshape(-1, 50).mean(axis=1)))
+        print(f"{name}, seed {seed}: {kind} first {first:.2f}, last {last:.2f} (fell "
+              f"{first - last:.2f}, bar {IMG_FALL[name]:.1f}; level {IMG_LEVEL[name]:.1f}) met "
+              f"{met}; graphed train step {step_ms:.3f} ms (chunks of {sched['chunk']}, host "
+              f"clock, synchronised); {smi}")
+        if graph.replays != sched["steps"] or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}, seed {seed}: {graph.replays} replays, finite "
+                                 f"{np.isfinite(losses).all()}")
+        draws.append(dict(seed=seed, first=first, last=last, step_ms=step_ms, met=met))
+        if seed == FAMILY_SEEDS[0]:
+            first_run = (counted, graph)
+        else:
+            del graph
+        del trainer
+        release()
+        if met:
+            break
+    if not any(d["met"] for d in draws):
+        raise AssertionError(f"{name}: the loss fell by {IMG_FALL[name]} nats to "
+                             f"{IMG_LEVEL[name]} in no draw")
+    counted, graph = first_run
+    path = path_launches(f"{name} training", counted, graph, WARMUP_CALLS + 1,
+                         img_train_call(model))
+    del graph
+    release()
+    return dict(path=path, step_ms=draws[0]["step_ms"], draws=draws)
+
+
+def check_img_xl(smi) -> dict:
+    """Phase 28: GridConvCNPXL (12 blocks) on rgb_digits128 at batch 32,
+    `IMG_XL_STEPS` graphed steps with the blocks' activations stored and
+    `IMG_XL_REMAT_STEPS` rematerialised (`--remat`): finite losses, K2 and
+    K3 once a replay, the peak device memory and the step time."""
+    train_ds, _ = get_train_test_img_dataset("rgb_digits128")
+    images = train_ds.images.cuda()
+    out = {}
+    for remat, steps in ((False, IMG_XL_STEPS), (True, IMG_XL_REMAT_STEPS)):
+        sched = train_img.schedule(len(train_ds), 100, TRAIN_BATCH, steps)
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = train_img.build_trainer("GridConvCNPXL", "rgb_digits128", 3, 100,
+                                          sched["steps_per_epoch"], "cuda", 0, remat)
+        reset_counts()
+        _, losses, seconds = train_img.train(trainer, images, TRAIN_BATCH, sched, verbose=False)
+        torch.cuda.synchronize()
+        counted = counts()
+        (graph,) = trainer.graphs.values()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = losses.cpu().numpy()
+        label = "rematerialised" if remat else "stored"
+        per_replay = trace_replay(graph, f" of the XL {label} train graph", (0, 1, 1, 0, 0))
+        print(f"GridConvCNPXL, rgb_digits128, blocks {label}: {steps} graphed steps in "
+              f"{seconds:.2f}s, losses {losses[0]:.4g} -> {losses[-1]:.4g}; one step replayed "
+              f"{step_ms:.3f} ms (host clock, synchronised); peak memory "
+              f"{peak:.2f} GiB allocated; wrapper launches {counted}, a replay {per_replay}; {smi}")
+        if not (np.isfinite(losses).all() and per_replay == (0, 1, 1, 0, 0)):
+            raise AssertionError(f"GridConvCNPXL ({label}): non-finite losses or launches "
+                                 f"{per_replay}")
+        out[label] = dict(step_ms=step_ms, peak_gib=peak,
+                          first_loss=float(losses[0]), last_loss=float(losses[-1]))
+        del trainer, graph
+    release()
+    return out
+
+
+def run_img_phases(gen, smi) -> dict:
+    """Phases 24-28, the grid and image family, in order (module docstring)."""
+    phase("image kernels: K2 and K3 at the image decoders' rows (B x H x W x n_z; O = 2 and 6) "
+          "with the runs' own weights vs plain")
+    kernels = check_img_kernels(gen)
+    release()
+    phase("the 20 image runs: each scored over its whole test set, graphed, held to the bands "
+          "of JAX's eval draws through the port's CPU forward; one run of each family against "
+          "eager scoring")
+    score_paths, batch_ms = check_img_scores(smi)
+    phase("the image paths: one batch of each family, kernel path vs plain path")
+    batch = {IMG_FAMILIES[r]: check_img_batch(r, smi) for r in IMG_FAMILIES}
+    release()
+    phase("zsmms_diag: the four rows of zsmms/GridConvCNP/run_1")
+    diag = check_img_diag(smi)
+    train = {}
+    for name, model, dataset, steps in IMG_TRAIN:
+        phase(f"image training path {name}: {model} on {dataset}, graphed against eager, "
+              f"{steps} graphed steps from seeds {FAMILY_SEEDS}")
+        train[name] = check_img_family(name, model, dataset, steps, smi)
+    phase(f"GridConvCNPXL on rgb_digits128: {IMG_XL_STEPS} graphed steps stored, "
+          f"{IMG_XL_REMAT_STEPS} rematerialised; peak memory")
+    xl = check_img_xl(smi)
+    print(f"image paths (host clock, synchronised; {smi}): " + json.dumps(
+        {"score_batch_ms": batch_ms, "batch": batch, "diag": diag, "xl": xl,
+         "train": {k: {m: f[m] for m in ("step_ms", "draws")} for k, f in train.items()}}))
+    return dict(kernels=kernels, score_paths=score_paths, train=train)
+
+
 def kernel_entry(name, source, replaces, launches, rows, path_shapes, launches_by_path):
     """One kernel's line entry: times summed over the shapes one train step
     runs, the largest error over every shape checked; `launches` is the
@@ -2438,9 +2913,14 @@ def main() -> int:
          "train": {k: {m: f[m] for m in ("step_ms", "eager_step_ms", "draws")}
                    for k, f in gp_families.items()}}))
 
+    release()
+    img = run_img_phases(gen, smi)
+    k2_rows += img["kernels"]["K2"]
+    k3_rows += img["kernels"]["K3"]
+
     families = {}
-    for name, run_dir, steps, seeds in FAMILY_RUNS:
-        for dtype in (None, BF16):
+    for name, run_dir, dtype_steps, seeds in FAMILY_RUNS:
+        for dtype, steps in zip((None, BF16), dtype_steps):
             label = f"{name}{' bf16' if dtype is not None else ''}"
             phase(f"training path {label}: {os.path.relpath(run_dir, RESULTS)}'s configuration, "
                   f"graphed against eager, {steps} graphed steps from seeds {seeds}, kernel path "
@@ -2465,7 +2945,9 @@ def main() -> int:
                 if k.startswith(("freq", "latent"))},
              **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in families.items()},
              **{f"score_{k.replace(' ', '_')}": p for k, p in gp_score_paths.items()},
-             **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in gp_families.items()}}
+             **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in gp_families.items()},
+             **{f"score_{k.replace(' ', '_')}": p for k, p in img["score_paths"].items()},
+             **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in img["train"].items()}}
     print(f"long-waveform batch times (host clock; {smi}): " + json.dumps(long_ms))
     print(f"latent batches, kernel vs plain path (host clock; {smi}): " + json.dumps(latent_batch))
 

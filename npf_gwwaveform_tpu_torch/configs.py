@@ -26,6 +26,17 @@ run from its summary as `experiments/reeval.py` does, with the run's own
 BatchNorm eps.
 A GW loader refuses a GP run's summary (it has a `kernel` field) and the GP
 loader a GW run's.
+
+The image benchmark's models (`experiments/reproduce_img.py`) come from
+`img_model` (that script's `build_model`): GridConvCNP (five 2-D
+ResConvBlocks of two layers, k = 9, BatchNorm, the AbsConv at k = 11),
+GridConvLNP (four blocks in both grid CNNs, `is_global`, 16 z draws in
+training and 32 in eval), GridConvCNPXL (twelve blocks), each with
+circular padding and BatchNorm eps 1e-2 on `zsmms`; and the set and
+attention family at `gp_model_1d`'s widths with x_dim = 2, the attention
+models with the self-attention xy-encoder. `img_model_from_summary`
+rebuilds an image run (`is_img_summary`: its summary names a `dataset`),
+which the GW and GP loaders refuse, as the image loader refuses theirs.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from torch import nn
 from .losses import BaseLossNPF, CNPFLoss, ELBOLossLNPF, NLLLossLNPF, SUMOLossLNPF
 from .models.attnnp import AttnCNP, AttnLNP
 from .models.convnp import ConvCNP, ConvLNP
+from .models.gridconvnp import GridConvCNP, GridConvLNP
 from .models.np import CNP, LNP
 
 R_DIM = 128
@@ -47,7 +59,9 @@ __all__ = ["gw_model_from_summary", "gw_train_summary", "run_tag", "train_config
            "R_DIM", "STEPS_PER_EPOCH", "MODELS", "GP_MODELS", "SET_MODELS", "LATENT_MODELS",
            "gp_criterion", "criterion_from_summary",
            "default_clip", "gp_model_1d", "gp_model_variant", "variant_name", "parse_variant",
-           "gp_model_from_summary", "gp_criterion_from_summary", "is_gp_summary"]
+           "gp_model_from_summary", "gp_criterion_from_summary", "is_gp_summary",
+           "IMG_MODELS", "GRID_MODELS", "img_model", "img_model_from_summary", "img_criterion",
+           "is_img_summary"]
 
 # the GW model families the port builds
 MODELS = ("ConvCNP", "ConvLNP")
@@ -87,6 +101,9 @@ def gw_model_from_summary(summary: dict, use_kernels: bool = True,
     if is_gp_summary(summary):
         raise ValueError(f"a GP run's summary (kernel={summary['kernel']!r}): rebuild it with "
                          "configs.gp_model_from_summary (score_gp.load_model)")
+    if is_img_summary(summary):
+        raise ValueError(f"an image run's summary (dataset={summary['dataset']!r}): rebuild it "
+                         "with configs.img_model_from_summary (score_img.load_model)")
     arch = summary.get("cnn_arch", "cnn")
     dilations = summary.get("cnn_dilations") or None
     cond = bool(summary.get("conditioned"))
@@ -137,9 +154,9 @@ _NPML_DRAWS = {"LNP": 32, "AttnLNP": 8, "ConvLNP": 16}
 
 
 def _set_model(name: str, r_dim: int, dtype: Optional[torch.dtype], use_kernels: bool,
-               **overrides) -> nn.Module:
+               x_dim: int = 1, y_dim: int = 1, **overrides) -> nn.Module:
     cls, hidden, kwargs = _SET_CONFIGS[name]
-    return cls(x_dim=1, y_dim=1, r_dim=r_dim, xy_hidden_size=hidden * r_dim,
+    return cls(x_dim=x_dim, y_dim=y_dim, r_dim=r_dim, xy_hidden_size=hidden * r_dim,
                use_kernels=use_kernels, dtype=dtype, **{**kwargs, **overrides})
 
 
@@ -228,7 +245,8 @@ def gp_model_from_summary(summary: dict, use_kernels: bool = True,
     summary is refused."""
     if not is_gp_summary(summary):
         raise ValueError("not a GP run's summary (no `kernel`): rebuild a GW run with "
-                         "configs.gw_model_from_summary (score.load_model)")
+                         "configs.gw_model_from_summary (score.load_model), an image run with "
+                         "configs.img_model_from_summary (score_img.load_model)")
     name, eps = summary["model"], summary.get("norm_eps", 1e-3)
     kw = dict(cnn_norm_eps=eps, use_kernels=use_kernels, dtype=dtype)
     if "_ELBO" in name:
@@ -388,3 +406,63 @@ def train_config(summary: dict) -> dict:
     """A run summary's configuration fields (`CONFIG_KEYS`): what a run
     trained with the same flags records, whatever its length and scores."""
     return {k: v for k, v in summary.items() if k in CONFIG_KEYS}
+
+
+# the image benchmark's families (experiments/reproduce_img.py)
+GRID_MODELS = ("GridConvCNP", "GridConvLNP", "GridConvCNPXL")
+IMG_MODELS = GRID_MODELS + SET_MODELS
+# GridConvCNP's, GridConvLNP's and GridConvCNPXL's blocks in each grid CNN
+_GRID_BLOCKS = {"GridConvCNP": 5, "GridConvLNP": 4, "GridConvCNPXL": 12}
+
+
+def is_img_summary(summary: dict) -> bool:
+    """Whether a summary is an image run's (`reproduce_img.py` records its
+    dataset)."""
+    return "dataset" in summary
+
+
+def img_model(name: str, dataset: str = "digits", y_dim: int = 1, use_kernels: bool = True,
+              remat: bool = False, n_conv_layers: int = 2) -> nn.Module:
+    """An image model as `reproduce_img.py`'s `build_model` makes it for
+    `dataset`: the grid family at r_dim 128 with 2-D ResConvBlocks of
+    `n_conv_layers` (two in that script; one in an earlier build), k = 9,
+    BatchNorm, the AbsConv at k = 11, on `zsmms` circular padding and
+    BatchNorm eps 1e-2 (else zeros and 1e-3); GridConvLNP with `is_global`,
+    16 z draws in training and 32 in eval; `remat` each CNN block's
+    recomputation in the backward pass. The point models are
+    `gp_model_1d`'s at x_dim = 2 and `y_dim`, AttnCNP and AttnLNP with the
+    self-attention xy-encoder."""
+    if name in SET_MODELS:
+        extra = dict(is_self_attn=True) if name.startswith("Attn") else {}
+        return _set_model(name, R_DIM, None, use_kernels, x_dim=2, y_dim=y_dim, **extra)
+    if name not in GRID_MODELS:
+        raise ValueError(f"model={name!r}: one of {', '.join(IMG_MODELS)}")
+    zsmms = dataset == "zsmms"
+    common = dict(x_dim=1, y_dim=y_dim, r_dim=R_DIM, cnn_n_blocks=_GRID_BLOCKS[name],
+                  cnn_kernel_size=9, cnn_norm="batch", cnn_n_conv_layers=n_conv_layers,
+                  cnn_norm_eps=1e-2 if zsmms else 1e-3, conv_kernel_size=11,
+                  conv_padding="CIRCULAR" if zsmms else "SAME", cnn_remat=remat,
+                  use_kernels=use_kernels)
+    if name == "GridConvLNP":
+        return GridConvLNP(is_global=True, n_z_samples_train=16, n_z_samples_test=32, **common)
+    return GridConvCNP(**common)
+
+
+def img_model_from_summary(summary: dict, use_kernels: bool = True, remat: bool = False,
+                           n_conv_layers: int = 2) -> nn.Module:
+    """An image run's model (`img_model` of its `model` and `dataset`, y_dim
+    the summary's, 1 where an older summary has none). A GW or GP run's
+    summary is refused."""
+    if not is_img_summary(summary):
+        raise ValueError("not an image run's summary (no `dataset`): rebuild a GW run with "
+                         "configs.gw_model_from_summary, a GP run with "
+                         "configs.gp_model_from_summary")
+    return img_model(summary["model"], summary["dataset"], summary.get("y_dim", 1),
+                     use_kernels, remat, n_conv_layers)
+
+
+def img_criterion(name: str) -> BaseLossNPF:
+    """An image model's training objective, as `reproduce_img.py` picks it:
+    NPML (`NLLLossLNPF`) for the names holding "LNP", the exact NLL
+    otherwise."""
+    return NLLLossLNPF() if "LNP" in name else CNPFLoss()

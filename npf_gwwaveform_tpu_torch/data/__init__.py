@@ -1,9 +1,14 @@
 from .datasplit import (
-    CntxtTrgtSplitter, GetIndcsMerger, GetRandomIndcs, exact_topn_mask, get_all_indcs,
-    get_range_indcs,
+    CntxtTrgtSplitter, GetIndcsMerger, GetRandomIndcs, GridCntxtTrgtSplitter,
+    PointsFromGridSplitter, RandomMasker, ResolutionMasker, SuperresolutionCntxtTrgtSplitter,
+    exact_topn_mask, get_all_indcs, get_range_indcs, grid_to_points, half_masker, no_masker,
 )
 from .gp import (
     KERNEL_CONFIGS, DatasetMerger, GPDataset, GPSampler, MixtureGPSampler, get_gp_datasets,
+)
+from .images import (
+    DATASETS_DICT, DigitsDataset, GridImageDataset, LocalNpzDataset, RGBDigitsDataset,
+    RGBDigitsMosaicDataset, SingleImage, ZeroShotMultiDigits, get_train_test_img_dataset,
 )
 from .gw import (
     FrequencyDomainWaveform, GWParameterSpace, GWWaveformDataset, GWWaveformGenerator, make_batch,
@@ -14,4 +19,9 @@ __all__ = ["CntxtTrgtSplitter", "DatasetMerger", "GetIndcsMerger", "GetRandomInd
            "FrequencyDomainWaveform", "GPDataset", "GPSampler", "GWParameterSpace",
            "GWWaveformDataset", "GWWaveformGenerator", "KERNEL_CONFIGS", "MixtureGPSampler",
            "exact_topn_mask", "get_all_indcs", "get_gp_datasets", "get_range_indcs",
-           "make_batch", "match", "match_fd", "mismatch", "mismatch_fd", "psd_aligo"]
+           "make_batch", "match", "match_fd", "mismatch", "mismatch_fd", "psd_aligo",
+           "DATASETS_DICT", "DigitsDataset", "GridCntxtTrgtSplitter", "GridImageDataset",
+           "LocalNpzDataset", "PointsFromGridSplitter", "RGBDigitsDataset",
+           "RGBDigitsMosaicDataset", "RandomMasker", "ResolutionMasker", "SingleImage",
+           "SuperresolutionCntxtTrgtSplitter", "ZeroShotMultiDigits",
+           "get_train_test_img_dataset", "grid_to_points", "half_masker", "no_masker"]

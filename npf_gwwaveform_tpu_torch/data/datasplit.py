@@ -1,7 +1,16 @@
 """Context/target splitting into padded sets with boolean masks, the
 counterpart of `npf_gwwaveform_tpu/data/datasplit.py`. Randomness comes from
 an explicit `torch.Generator`; the mask construction from scores is a pure
-function and gives the JAX package's masks bit for bit."""
+function and gives the JAX package's masks bit for bit.
+
+On image grids ([B, *grid, y_dim], channel-last) a grid masker
+(generator, batch_size, grid_shape) -> bool [B, *grid] picks the context
+pixels (`RandomMasker`, `no_masker`, `ResolutionMasker`, `half_masker`);
+`GridCntxtTrgtSplitter` gives the grid models the masks themselves (X is
+the mask), `SuperresolutionCntxtTrgtSplitter` a regular low-resolution
+context, and `PointsFromGridSplitter` the point models padded point sets
+(`grid_to_points`) at coordinates in [-1, 1] times `upscale_factor`.
+"""
 
 from __future__ import annotations
 
@@ -11,7 +20,10 @@ from typing import Callable
 import torch
 
 __all__ = ["get_all_indcs", "get_range_indcs", "GetIndcsMerger", "GetRandomIndcs",
-           "exact_topn_mask", "CntxtTrgtSplitter"]
+           "exact_topn_mask", "CntxtTrgtSplitter", "RandomMasker", "no_masker",
+           "ResolutionMasker", "half_masker", "GridCntxtTrgtSplitter",
+           "SuperresolutionCntxtTrgtSplitter", "PointsFromGridSplitter", "unit_axis", "grid_coords",
+           "grid_to_points"]
 
 
 def get_all_indcs(generator, batch_size: int, n_points: int) -> torch.Tensor:
@@ -111,3 +123,151 @@ class CntxtTrgtSplitter:
         if condition is not None:
             batch["condition"] = condition
         return batch
+
+
+# ---- grid maskers: (generator, batch_size, grid_shape) -> bool [B, *grid]
+
+
+@dataclass(frozen=True)
+class RandomMasker:
+    """n ~ U{a..b} pixels of the flattened grid (ratios of the pixel count
+    below 1), `GetRandomIndcs`'s mask reshaped to the grid."""
+
+    a: float = 0.1
+    b: float = 0.5
+    is_indep_n: bool = False
+
+    def __call__(self, generator: torch.Generator, batch_size: int, grid_shape) -> torch.Tensor:
+        n_pix = 1
+        for s in grid_shape:
+            n_pix *= s
+        flat = GetRandomIndcs(a=self.a, b=self.b, is_indep_n=self.is_indep_n)(
+            generator, batch_size, n_pix)
+        return flat.reshape((batch_size,) + tuple(grid_shape))
+
+
+def no_masker(generator, batch_size: int, grid_shape) -> torch.Tensor:
+    """Every pixel selected."""
+    return torch.ones((batch_size,) + tuple(grid_shape), dtype=torch.bool,
+                      device=generator.device)
+
+
+@dataclass(frozen=True)
+class ResolutionMasker:
+    """Every `factor`-th pixel along each axis, from the first."""
+
+    factor: int = 2
+
+    def __call__(self, generator, batch_size: int, grid_shape) -> torch.Tensor:
+        mask = torch.zeros(tuple(grid_shape), dtype=torch.bool, device=generator.device)
+        mask[tuple(slice(None, None, self.factor) for _ in grid_shape)] = True
+        return mask[None].expand((batch_size,) + tuple(grid_shape))
+
+
+def half_masker(generator, batch_size: int, grid_shape, dim: int = 0) -> torch.Tensor:
+    """The first half of the grid along `dim`."""
+    mask = torch.zeros(tuple(grid_shape), dtype=torch.bool, device=generator.device)
+    idx = [slice(None)] * len(grid_shape)
+    idx[dim] = slice(0, grid_shape[dim] // 2)
+    mask[tuple(idx)] = True
+    return mask[None].expand((batch_size,) + tuple(grid_shape))
+
+
+def unit_axis(n: int, device=None) -> torch.Tensor:
+    """`jnp.linspace(-1, 1, n)` in float32 as XLA's CPU code computes it:
+    step p_i = i * fl(1 / (n - 1)) and -(1 - fl(p_i)) + p_i fused into one
+    multiply-add (the product unrounded), the last point 1; equal to it bit
+    for bit for every n up to 352 (each image axis), which the plain
+    arithmetic (`utils.helpers.linspace`) is not. Made on `device` in
+    float64, without a copy from the host."""
+    if n < 2:
+        return torch.full((n,), -1.0, dtype=torch.float32, device=device)
+    r = torch.full((), 1.0, dtype=torch.float32, device=device) / (n - 1)
+    p = torch.arange(n - 1, dtype=torch.float64, device=device) * r.double()
+    out = (p - (1.0 - p.float()).double()).float()
+    return torch.cat([out, torch.ones(1, dtype=torch.float32, device=device)])
+
+
+def grid_coords(grid_shape, upscale_factor: float = 1.0, device=None) -> torch.Tensor:
+    """[prod(grid), ndim]: each pixel's coordinates, `jnp.linspace(-1, 1, s)`
+    along each axis (`unit_axis`) times `upscale_factor`, in raster order."""
+    axes = [unit_axis(s, device) * upscale_factor for s in grid_shape]
+    mesh = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    return mesh.reshape(-1, len(grid_shape))
+
+
+@dataclass(frozen=True)
+class GridCntxtTrgtSplitter:
+    """Context and target grid masks for the grid models, which take the
+    mask as X ([B, *grid, 1]) and the whole grid as Y; the context mask is
+    drawn first, then the target mask."""
+
+    context_masker: Callable = RandomMasker()
+    target_masker: Callable = no_masker
+    upscale_factor: float = 1.0
+
+    def __call__(self, generator: torch.Generator, x, y=None, condition=None) -> dict:
+        """x or y [B, *grid, y_dim] (y when given) -> the split batch."""
+        y_grid = x if y is None else y
+        B, grid_shape = y_grid.shape[0], tuple(y_grid.shape[1:-1])
+        mask_cntxt = self.context_masker(generator, B, grid_shape)
+        mask_trgt = self.target_masker(generator, B, grid_shape)
+        return dict(X_cntxt=mask_cntxt[..., None], Y_cntxt=y_grid, mask_cntxt=mask_cntxt,
+                    X_trgt=mask_trgt[..., None], Y_trgt=y_grid, mask_trgt=mask_trgt)
+
+    def coords(self, grid_shape, device=None) -> torch.Tensor:
+        """`grid_coords` at this splitter's `upscale_factor`."""
+        return grid_coords(grid_shape, self.upscale_factor, device)
+
+
+@dataclass(frozen=True)
+class SuperresolutionCntxtTrgtSplitter:
+    """The image at every `resolution_factor`-th pixel as the context, the
+    whole grid as the targets (X_trgt all ones in y's dtype, as in JAX)."""
+
+    resolution_factor: int = 2
+
+    def __call__(self, generator: torch.Generator, x, y=None, condition=None) -> dict:
+        y_grid = x if y is None else y
+        B, grid_shape = y_grid.shape[0], tuple(y_grid.shape[1:-1])
+        mask_cntxt = ResolutionMasker(self.resolution_factor)(generator, B, grid_shape)
+        ones = torch.ones((B,) + grid_shape, dtype=torch.bool, device=y_grid.device)
+        return dict(X_cntxt=mask_cntxt[..., None], Y_cntxt=y_grid, mask_cntxt=mask_cntxt,
+                    X_trgt=ones[..., None].to(y_grid.dtype), Y_trgt=y_grid, mask_trgt=ones)
+
+
+@dataclass(frozen=True)
+class PointsFromGridSplitter:
+    """Padded point sets of an image batch for the point models: the
+    context pixels `context_masker` picks, every pixel as a target, both
+    padded to the pixel count (`grid_to_points`), coordinates in [-1, 1]
+    times `upscale_factor`."""
+
+    context_masker: Callable = RandomMasker()
+    upscale_factor: float = 1.0
+
+    def __call__(self, generator: torch.Generator, x, y=None, condition=None) -> dict:
+        y_grid = x if y is None else y
+        B, grid_shape = y_grid.shape[0], tuple(y_grid.shape[1:-1])
+        n_pix = 1
+        for s in grid_shape:
+            n_pix *= s
+        mask_cntxt = self.context_masker(generator, B, grid_shape)
+        xc, yc, mc = grid_to_points(y_grid, mask_cntxt, n_pix, self.upscale_factor)
+        full = torch.ones((B,) + grid_shape, dtype=torch.bool, device=y_grid.device)
+        xt, yt, mt = grid_to_points(y_grid, full, n_pix, self.upscale_factor)
+        return dict(X_cntxt=xc, Y_cntxt=yc, mask_cntxt=mc, X_trgt=xt, Y_trgt=yt, mask_trgt=mt)
+
+
+def grid_to_points(y_grid: torch.Tensor, mask: torch.Tensor, n_max: int,
+                   upscale_factor: float = 1.0) -> tuple:
+    """(image [B, *grid, y_dim], mask [B, *grid]) -> (x [B, n_max, ndim], y
+    [B, n_max, y_dim], mask [B, n_max]): the masked-in pixels first, each
+    part in raster order (a stable sort), cut to n_max."""
+    B, grid_shape, y_dim = y_grid.shape[0], tuple(y_grid.shape[1:-1]), y_grid.shape[-1]
+    coords = grid_coords(grid_shape, upscale_factor, y_grid.device)
+    flat_mask = mask.reshape(B, -1)
+    order = torch.sort((~flat_mask).to(torch.uint8), dim=-1, stable=True)[1][:, :n_max]
+    x = coords[order]
+    y = y_grid.reshape(B, -1, y_dim).gather(1, order[..., None].expand(-1, -1, y_dim))
+    return x, y, flat_mask.gather(1, order)

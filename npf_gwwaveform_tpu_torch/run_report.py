@@ -1,7 +1,7 @@
 """Read what a run directory records: the quality bands a rescoring of the
 run must land in, and a run's training history beside another's.
 
-    python -m npf_gwwaveform_tpu_torch.run_report bands [--results results/] [--set]
+    python -m npf_gwwaveform_tpu_torch.run_report bands [--results results/] [--set | --img]
     python -m npf_gwwaveform_tpu_torch.run_report history --run RUN_DIR --ref RUN_DIR
 
 `bands` prints a markdown table of every GW ConvCNP run under `--results`
@@ -19,7 +19,11 @@ side. For the flagship run this gives [883.9, 905.5] and [0.00143, 0.00300];
 prints every conv-family GP run (`gp_runs`): its recorded mean LL over its
 `eval.csv` and the band by the same rule at half their count (9,984 ->
 4,992 resampled), LL only (`gp_band`). With `--set` it prints instead the
-57 set and attention GP runs (`gp_set_runs`) the same way.
+57 set and attention GP runs (`gp_set_runs`) the same way, and with `--img`
+the 21 image runs (`img_runs`: per-image log-likelihoods, 160, 256 or
+1,024 a run), each run's band by the GP runs' rule (`gp_band`); the one
+grid run without BatchNorm statistics (no `extra_vars.msgpack`,
+`img_rescorable`) is marked as not rescored.
 
 `history` prints, at steps 10,000, 50,000, 100,000, 150,000 and 200,000,
 the 50-step train loss that ends there and the mean over the 1,000 steps
@@ -36,12 +40,14 @@ from typing import Optional
 
 import numpy as np
 
-from .configs import SET_MODELS
+from .configs import GRID_MODELS, SET_MODELS
 
 __all__ = ["recorded_scores", "bands_of", "score_bands", "gp_band", "gp_runs", "gp_set_runs",
-           "scored_runs", "history_at", "main"]
+           "IMG_DATASETS", "img_rescorable", "img_runs", "scored_runs", "history_at", "main"]
 
 
+# the image corpora with runs under results/
+IMG_DATASETS = ("digits", "rgb_digits", "rgb_digits128", "zsmms")
 N_BOOT, N_RESAMPLE, QUANTILE, WIDEN, BOOT_SEED = 10_000, 1024, 0.99, 0.5, 0
 HISTORY_STEPS, HISTORY_WINDOW = (10_000, 50_000, 100_000, 150_000, 200_000), 1000
 
@@ -102,6 +108,22 @@ def gp_set_runs(results: str = "results") -> list:
         if p.split(os.sep)[-3].split("_")[0] in SET_MODELS)
 
 
+def img_rescorable(run_dir: str) -> bool:
+    """Whether an image run can be rescored: a grid model's BatchNorm needs
+    the running statistics of its `extra_vars.msgpack`, without which it
+    would score at its init statistics (`reproduce_img.py`)."""
+    return (os.path.basename(os.path.dirname(os.path.normpath(run_dir))) not in GRID_MODELS
+            or os.path.exists(os.path.join(run_dir, "extra_vars.msgpack")))
+
+
+def img_runs(results: str = "results", scored: bool = False) -> list:
+    """The image run directories under `results` that hold parameters
+    (`IMG_DATASETS`), sorted; with `scored` those `img_rescorable`."""
+    runs = sorted(os.path.dirname(p) for d in IMG_DATASETS for p in glob.glob(
+        os.path.join(results, d, "*", "run_*", "params.msgpack")))
+    return [r for r in runs if img_rescorable(r)] if scored else runs
+
+
 def scored_runs(results: str = "results", model: str = "ConvCNP") -> list:
     """The GW run directories of `model` ("ConvCNP": time-domain and
     frequency-domain; "ConvLNP": the four latent runs) under `results` that
@@ -125,15 +147,17 @@ def _fmt(x, digits):
     return "n/a" if x is None else f"{x:.{digits}f}"
 
 
-def _gp_table(runs: list, results: str) -> None:
-    """A markdown table of GP runs: functions, recorded mean LL, `gp_band`."""
-    print("| GP run | Functions | Recorded mean LL | LL band |")
+def _gp_table(runs: list, results: str, kind: str = "GP run", unit: str = "Functions") -> None:
+    """A markdown table of GP (or image) runs: functions (images), recorded
+    mean LL, `gp_band`."""
+    print(f"| {kind} | {unit} | Recorded mean LL | LL band |")
     print("| --- | --- | --- | --- |")
     for run_dir in runs:
+        name = os.path.relpath(run_dir, results)
         ll = np.loadtxt(os.path.join(run_dir, "eval.csv"), delimiter=",", ndmin=1)
         l0, l1 = gp_band(run_dir)
-        print(f"| `{os.path.relpath(run_dir, results)}` | {ll.shape[0]} | {ll.mean():.2f} | "
-              f"[{l0:.2f}, {l1:.2f}] |")
+        band = f"[{l0:.2f}, {l1:.2f}]" if img_rescorable(run_dir) else "not rescored"
+        print(f"| `{name}` | {ll.shape[0]} | {ll.mean():.2f} | {band} |")
 
 
 def main(argv=None) -> None:
@@ -141,12 +165,17 @@ def main(argv=None) -> None:
     sub = ap.add_subparsers(dest="cmd", required=True)
     b = sub.add_parser("bands")
     b.add_argument("--results", default="results")
-    b.add_argument("--set", action="store_true",
-                   help="the set and attention family's GP runs instead")
+    kind = b.add_mutually_exclusive_group()
+    kind.add_argument("--set", action="store_true",
+                      help="the set and attention family's GP runs instead")
+    kind.add_argument("--img", action="store_true", help="the image runs instead")
     h = sub.add_parser("history")
     h.add_argument("--run", required=True)
     h.add_argument("--ref", required=True)
     args = ap.parse_args(argv)
+    if args.cmd == "bands" and args.img:
+        _gp_table(img_runs(args.results), args.results, "Image run", "Images")
+        return
     if args.cmd == "bands" and args.set:
         _gp_table(gp_set_runs(args.results), args.results)
         return

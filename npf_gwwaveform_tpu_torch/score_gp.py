@@ -26,8 +26,8 @@ of one CUDA graph that holds all of it, the sampling included.
 It prints one JSON line. With `--out` it also writes `eval.csv` (one
 log-likelihood per function) and the run's summary with the new scores
 (`mean_test_ll`, `std_test_ll`, `n_test`, `eval_protocol`) and
-`rescored_from` into that directory; it never writes into the run
-directory.
+`rescored_from` into that directory, which may be neither the run
+directory nor under `results/` (`check_out_dir`; `score_img` shares both).
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ KERNELS = tuple(KERNEL_CONFIGS) + ("All_Kernels",)
 
 __all__ = ["EVAL_BATCH", "EVAL_SEED", "N_CONTEXT", "ALL_KERNELS", "KERNELS", "samplers",
            "load_model", "eval_splitter", "score_batch", "batch_graph", "score_model",
-           "score_run", "write_scores", "main"]
+           "score_run", "check_out_dir", "write_scores", "main"]
 
 
 def samplers(kernel: str) -> tuple:
@@ -160,6 +160,18 @@ def score_run(run_dir: str, n_test: int = 10_000, device="cuda", seed: int = EVA
                 ll=ll, graphs=res["graphs"])
 
 
+def check_out_dir(out: Optional[str], run_dir: str, results: str = "results") -> None:
+    """Refuse an output directory that is the run's or lies under `results`."""
+    if out is None:
+        return
+    path = os.path.realpath(out)
+    if path == os.path.realpath(run_dir):
+        raise ValueError("--out is the run directory; the scorer never writes into it")
+    root = os.path.realpath(results)
+    if path == root or path.startswith(root + os.sep):
+        raise ValueError(f"--out {out} lies under {results}/; the scorer never writes there")
+
+
 def write_scores(out_dir: str, summary: dict, ll: np.ndarray, **extra) -> dict:
     """Write `eval.csv` and `summary.json` (the given summary with the
     scores `reproduce_gp.py` records, `eval_protocol` "indep_n", and
@@ -180,10 +192,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=EVAL_SEED)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, metavar="DIR",
-                    help="write eval.csv and summary.json here (never the run directory)")
+                    help="write eval.csv and summary.json here (not the run, not results/)")
     args = ap.parse_args(argv)
-    if args.out is not None and os.path.abspath(args.out) == os.path.abspath(args.run_dir):
-        ap.error("--out is the run directory; score_gp never writes into it")
+    try:
+        check_out_dir(args.out, args.run_dir)
+    except ValueError as e:
+        ap.error(str(e))
     set_numerics()
     res = score_run(args.run_dir, args.n_test, args.device, args.seed)
     if args.out is not None:

@@ -145,6 +145,12 @@ def _flax_name(parts: list, i: int) -> str:
     return "MLP_0"
 
 
+# a flax kernel's axes -> the torch weight's, by rank (Dense, 1-D conv, 2-D
+# conv), and back
+_FROM_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -156,9 +162,10 @@ def _flatten(tree, prefix=()):
 def params_from_flax(params: dict, extra_vars: dict = None) -> dict:
     """Map flax numpy trees onto a state dict of the port's modules.
 
-    Dense `kernel [in, out]` -> `weight [out, in]`; conv `kernel [k, in/g,
-    out]` -> `weight [out, in/g, k]`; BatchNorm `scale`/`bias` and the
-    `batch_stats` `mean`/`var` keep their names.
+    Dense `kernel [in, out]` -> `weight [out, in]`; 1-D conv `kernel [k,
+    in/g, out]` -> `weight [out, in/g, k]`; 2-D conv `kernel [kh, kw, in/g,
+    out]` (HWIO) -> `weight [out, in/g, kh, kw]`; BatchNorm `scale`/`bias`
+    and the `batch_stats` `mean`/`var` keep their names.
     """
     extra_vars = extra_vars or {}
     unknown = set(extra_vars) - {"batch_stats"}
@@ -171,7 +178,7 @@ def params_from_flax(params: dict, extra_vars: dict = None) -> dict:
             arr = np.asarray(leaf, dtype=np.float32)
             if name == "kernel":
                 name = "weight"
-                arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
+                arr = np.transpose(arr, _FROM_FLAX[arr.ndim])
             state[".".join(mods + [name])] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return state
 
@@ -240,7 +247,7 @@ def flax_from_params(state: dict, buffer_names) -> tuple:
         arr = t.detach().cpu().float().numpy()
         if name == "weight":
             name = "kernel"
-            arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
+            arr = np.transpose(arr, _TO_FLAX[arr.ndim])
         node = stats if key in buffer_names else params
         for m in mods:
             node = node.setdefault(m, {})

@@ -132,12 +132,14 @@ def init_dense(layer: nn.Linear, kernel_init: Init,
             layer.bias.zero_()
 
 
-def init_conv(conv: nn.Conv1d, kernel_init: Init,
+def init_conv(conv: nn.Module, kernel_init: Init,
               generator: Optional[torch.Generator] = None) -> None:
-    """weight [out, in/g, k] stands for the flax kernel [k, in/g, out]; bias zero."""
-    out_c, in_g, k = conv.weight.shape
+    """weight [out, in/g, *k] stands for the flax kernel [*k, in/g, out]
+    (1-D or 2-D); bias zero. The receptive field counts into both fans."""
+    out_c, in_g, *ks = conv.weight.shape
+    k = math.prod(ks)
     kernel_init(conv.weight, k * in_g, k * out_c, generator)
-    if conv.bias is not None:
+    if getattr(conv, "bias", None) is not None:
         with torch.no_grad():
             conv.bias.zero_()
 

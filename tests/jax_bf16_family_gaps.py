@@ -71,6 +71,15 @@ own eval draws (32 for LNP, 8 for AttnLNP; an NPVI-trained run from
 q(z|C,T), its targets given, as JAX's eval step samples it): about 1.4 s
 a chunk of 64 LNP functions on one CPU thread, ~4 min a 32-draw run.
 
+With `--img` it does the same for the 20 scorable image runs
+(`run_report.img_runs(scored=True)`): each run's whole test set (160, 256
+or 1,024 images) in `reproduce_img.py`'s eval batches of 32, the images
+the JAX package's corpus, the context masks (or point sets) the JAX
+package's eval splitter draws from batch i's `fold_in(PRNGKey(123), i)`
+(its split key), the forward the port's on the CPU (z from a CPU generator
+seeded by the batch); `f32_bands` is `run_report.bands_of` at half the
+count. About 40 minutes on two threads for all 20.
+
 XLA's excess precision is turned off (`--xla_allow_excess_precision=false`)
 so that every bf16 op under jit rounds its result, as the ops read and as
 the port computes (tests/test_torch_bf16_slice.py).
@@ -263,6 +272,45 @@ def gp_f32(run_dir, n, chunk):
             "f32_bands": {"mean_ll": [lo, hi]}}
 
 
+def img_f32(run_dir):
+    """An image run's float32 scores over its whole test set (module
+    docstring) -> its entry."""
+    import torch
+
+    from experiments.reproduce_img import POINT_MODELS
+    from npf_gwwaveform_tpu.data import get_train_test_img_dataset
+    from npf_gwwaveform_tpu.data.datasplit import (
+        GridCntxtTrgtSplitter, PointsFromGridSplitter, RandomMasker, no_masker,
+    )
+    from npf_gwwaveform_tpu_torch import score_img
+    from npf_gwwaveform_tpu_torch.losses import npml_loss
+
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    model = score_img.load_model(run_dir, "cpu")
+    _, test = get_train_test_img_dataset(summary["dataset"])
+    masker = RandomMasker(a=0.0, b=0.3, is_indep_n=True)
+    splitter = (PointsFromGridSplitter(context_masker=masker,
+                                       upscale_factor=getattr(test, "test_upscale_factor", 1.0))
+                if summary["model"] in POINT_MODELS else
+                GridCntxtTrgtSplitter(context_masker=masker, target_masker=no_masker))
+    imgs, lls = test.images, []
+    for i in range(imgs.shape[0] // 32):
+        k_split, _ = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(123), i))
+        y = imgs[i * 32:(i + 1) * 32]
+        b = {k: torch.from_numpy(np.array(v)) for k, v in splitter(k_split, y, y).items()}
+        with torch.no_grad():
+            out = model(b["X_cntxt"], b["Y_cntxt"], b["X_trgt"], b["mask_cntxt"], b["mask_trgt"],
+                        y_trgt=b["Y_trgt"], generator=torch.Generator().manual_seed(i))
+            lls.append(-npml_loss(out, b["Y_trgt"], b["mask_trgt"], use_iw=False)
+                       .double().numpy())
+    ll = np.concatenate(lls)
+    lo, hi = bands_of(ll, n_resample=ll.shape[0] // 2)["mean_ll"]
+    return {"n": int(ll.shape[0]), "batch": 32, "img": True,
+            "f32": {"mean_ll": float(ll.mean()), "std_ll": float(ll.std())},
+            "f32_bands": {"mean_ll": [lo, hi]}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=2048)
@@ -278,15 +326,17 @@ def main() -> None:
                     help="every set and attention GP run, float32")
     ap.add_argument("--n-gp-set", type=int, default=9984,
                     help="functions a set or attention GP run")
+    ap.add_argument("--img", action="store_true", help="every scorable image run, float32")
     ap.add_argument("--shard", default=None, help="i/k: every k-th GP run from the i-th")
     ap.add_argument("--n-gp-cnp", type=int, default=9984,
                     help="functions a GP ConvCNP run (cheap on the CPU); a GP ConvLNP run "
                          "takes --n")
     args = ap.parse_args()
-    if args.gp or args.gp_set:
-        from npf_gwwaveform_tpu_torch.run_report import gp_runs, gp_set_runs
+    if args.gp or args.gp_set or args.img:
+        from npf_gwwaveform_tpu_torch.run_report import gp_runs, gp_set_runs, img_runs
 
-        args.runs = gp_set_runs(RESULTS) if args.gp_set else gp_runs(RESULTS)
+        args.runs = (img_runs(RESULTS, scored=True) if args.img else
+                     gp_set_runs(RESULTS) if args.gp_set else gp_runs(RESULTS))
         if args.shard:
             i, k = (int(v) for v in args.shard.split("/"))
             args.runs = args.runs[i::k]
@@ -302,6 +352,13 @@ def main() -> None:
         name = os.path.relpath(os.path.abspath(run_dir), RESULTS)
         with open(os.path.join(run_dir, "summary.json")) as f:
             summary = json.load(f)
+        if "dataset" in summary:  # an image run: float32 only
+            out[name] = img_f32(run_dir)
+            print(f"{name}: n {out[name]['n']}, f32 mean LL {out[name]['f32']['mean_ll']:.3f}, "
+                  f"band {out[name]['f32_bands']['mean_ll']}", flush=True)
+            with open(args.out, "w") as f:
+                json.dump(dict(sorted(out.items())), f, indent=1)
+            continue
         if "kernel" in summary:  # a GP run: float32 only
             family = summary["model"].split("_")[0]
             n = (args.n_gp_cnp if family == "ConvCNP" else args.n if family == "ConvLNP"

@@ -40,6 +40,19 @@ several times faster on the CPU than its grouped convolutions; the ConvLNP
 bars come from such runs (about 6-8 s a step on four cores).
 `--losses-out FILE` appends each step's loss to FILE as it comes (a ConvLNP
 step takes seconds here, so a long run is read while it goes).
+
+    JAX_PLATFORMS=cpu python tests/jax_reference_training.py --img NAME [--dataset digits]
+        [--seed 0] [--steps 300] [--losses-out FILE]
+
+trains instead an image configuration of `experiments/reproduce_img.py` as
+that script builds and steps it (its `build_model`, circular padding and
+BatchNorm eps 1e-2 on `zsmms`, Adam 1e-3 decaying x10 over its default 50
+epochs of len(train) // 32 steps, clip 1.0, contexts of U{0..30%} of the
+pixels, batch 32 drawn from the training images with replacement inside the
+jitted step, the keys of chunk i split from PRNGKey(5 + i) in chunks of
+100, the state from `create_train_state(seed=...)`), and prints the
+50-step means and the medians over the first and the last 50 steps as one
+JSON line: the bars `chip_smoke.py` holds the port's graphed steps to.
 """
 
 import argparse
@@ -126,6 +139,57 @@ def gp_main(args) -> None:
                           median_last_50=float(np.median(losses[-50:])))))
 
 
+def img_main(args) -> None:
+    """The image configuration's training (module docstring)."""
+    from experiments.reproduce_img import POINT_MODELS, build_model
+    from npf_gwwaveform_tpu.data import get_train_test_img_dataset
+    from npf_gwwaveform_tpu.data.datasplit import (
+        GridCntxtTrgtSplitter, PointsFromGridSplitter, RandomMasker, no_masker,
+    )
+    from npf_gwwaveform_tpu.losses import CNPFLoss, NLLLossLNPF
+
+    batch, epochs, inner = 32, 50, 100
+    train_ds, _ = get_train_test_img_dataset(args.dataset)
+    y_dim = int(train_ds.shape[-1])
+    zsmms = dict(padding="CIRCULAR", norm_eps=1e-2) if args.dataset == "zsmms" else {}
+    model = build_model(args.img, y_dim=y_dim, **zsmms)
+    criterion = NLLLossLNPF() if "LNP" in args.img else CNPFLoss()
+    masker = RandomMasker(a=0.0, b=0.3)
+    splitter = (PointsFromGridSplitter(context_masker=masker) if args.img in POINT_MODELS else
+                GridCntxtTrgtSplitter(context_masker=masker, target_masker=no_masker))
+    tx = make_optimizer(lr=1e-3, decay_lr=10.0, max_epochs=epochs,
+                        steps_per_epoch=max(1, len(train_ds) // batch), grad_clip_norm=1.0)
+    trainer = Trainer(model, criterion, tx, splitter=splitter)
+    imgs = train_ds.images
+    x0, y0 = next(train_ds.epoch_batches(batch))
+    state = create_train_state(model, tx, splitter(jax.random.PRNGKey(0), x0, y0),
+                               seed=args.seed)
+
+    @jax.jit
+    def one_step(state, k):
+        ki, _ = jax.random.split(k)
+        y = imgs[jax.random.randint(ki, (batch,), 0, imgs.shape[0])]
+        state, metrics = trainer._train_step(state, y, y)
+        return state, metrics["loss"]
+
+    losses = []
+    for c in range(-(-args.steps // inner)):
+        for k in jax.random.split(jax.random.PRNGKey(5 + c), inner)[:args.steps - c * inner]:
+            state, loss = one_step(state, k)
+            losses.append(float(loss))
+            if args.losses_out:
+                with open(args.losses_out, "a") as f:
+                    f.write(f"{losses[-1]!r}\n")
+            if len(losses) % 50 == 0:
+                print(f"{len(losses)} mean of the last 50: {np.mean(losses[-50:]):.1f}",
+                      flush=True)
+    print(json.dumps(dict(img=args.img, dataset=args.dataset, seed=args.seed, steps=args.steps,
+                          means_50=[float(np.mean(losses[i:i + 50]))
+                                    for i in range(0, args.steps, 50)],
+                          median_first_50=float(np.median(losses[:50])),
+                          median_last_50=float(np.median(losses[-50:])))))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -137,7 +201,15 @@ def main() -> None:
                     help="with --gp, the depthwise convs as banded matmuls (cnn_banded)")
     ap.add_argument("--losses-out", default=None, metavar="FILE",
                     help="with --gp, append each step's loss to FILE as it comes")
+    ap.add_argument("--img", default=None,
+                    choices=("GridConvCNP", "GridConvLNP", "GridConvCNPXL", "CNP", "LNP",
+                             "AttnCNP", "AttnLNP"))
+    ap.add_argument("--dataset", default="digits",
+                    choices=("digits", "rgb_digits", "rgb_digits128", "zsmms"))
     args = ap.parse_args()
+    if args.img is not None:
+        args.steps = args.steps or 300
+        return img_main(args)
     if args.gp is not None:
         args.steps = args.steps or 1000
         return gp_main(args)

@@ -3,8 +3,11 @@ unimportable, every module of the port and chip_smoke.py's module-level code
 import, the scorer runs on the CPU, and `train_gw` trains 2 steps on the CPU
 and scores its run; the set and attention family's modules (attention,
 self-attention, CNP, LNP, AttnCNP, AttnLNP) import, `score_gp` scores an
-AttnLNP run and `train_gp` trains 2 steps of LNP. Also: chip_smoke.py
-fails, printing no result, where it cannot run."""
+AttnLNP run and `train_gp` trains 2 steps of LNP; the image family's
+modules import with sklearn blocked too (the digits ship with the port),
+`score_img` scores a digits GridConvLNP run and `train_img` trains 2 steps
+of GridConvCNP. Also: chip_smoke.py fails, printing no result, where it
+cannot run."""
 
 import json
 import os
@@ -79,6 +82,26 @@ print(json.dumps({{"score": line, "steps": summary["steps"], "ll": summary["mean
 """
 
 
+_IMG_ISOLATED = f"""
+import sys
+for name in {_BLOCKED + ("sklearn",)!r}:
+    sys.modules[name] = None
+import json
+from npf_gwwaveform_tpu_torch import score_img, train_img
+line = score_img.main(["--run-dir", {os.path.join(REPO, "results", "digits", "GridConvLNP",
+                                                  "run_0")!r},
+                       "--n-test", "2", "--device", "cpu"])
+summary = train_img.main(["--device", "cpu", "--steps", "2", "--n-test", "2", "--out",
+                          sys.argv[1]])
+for name in ("data.images", "data.datasplit", "models.gridconvnp", "training.adapt"):
+    assert "npf_gwwaveform_tpu_torch." + name in sys.modules, name
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and m.split(".")[0] in {_BLOCKED + ("sklearn",)!r}]
+assert not loaded, loaded
+print(json.dumps({{"score": line, "steps": summary["steps"], "ll": summary["mean_test_ll"]}}))
+"""
+
+
 def _env():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("PYTHONSTARTUP", None)
@@ -110,6 +133,15 @@ def test_set_family_scores_and_trains_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["score"]["n"] == 2 and res["score"]["model"] == "AttnLNP"
+    assert res["steps"] == 2 and isinstance(res["ll"], float)
+
+
+def test_image_family_scores_and_trains_without_jax(tmp_path):
+    proc = subprocess.run([sys.executable, "-c", _IMG_ISOLATED, str(tmp_path)], cwd=REPO,
+                          env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["score"]["n"] == 2 and res["score"]["model"] == "GridConvLNP"
     assert res["steps"] == 2 and isinstance(res["ll"], float)
 
 
