@@ -168,7 +168,7 @@ Phases, each announced with the seconds elapsed:
      covariance at one fixed x within 6 standard errors of the kernel's;
  19. the 21 conv-family GP runs in `results/` (ConvCNP, ConvLNP and the
      RBF ConvLNP objective-ablation grid): each scored with
-     `score_gp.score_run` over 9,984 fresh functions a kernel (29,952 for
+     `score_gp.score_run` over 5,376 fresh functions a kernel (16,128 for
      All_Kernels), graphed after each kernel's first batch, through K1 (and
      K2 for ConvCNP), within the band of the JAX package's eval draws
      scored by the port's CPU forward (`tests/jax_bf16_family_gaps.json`),
@@ -239,10 +239,33 @@ Phases, each announced with the seconds elapsed:
      level bars from the JAX package's runs and the seeds' spread
      (`IMG_JAX`, `IMG_SEED_LAST`), seeds 1-2 as
      fallbacks, a traced replay's launches (K2 and K3, none for
-     GridConvLNP); and GridConvCNPXL on `rgb_digits128`, 20 graphed steps
-     with its blocks stored and 5 rematerialised, the peak memory and step
+     GridConvLNP); and GridConvCNPXL on `rgb_digits128`, 8 graphed steps
+     with its blocks stored and 3 rematerialised, the peak memory and step
      time of each.
-Phases 17-28 run after phase 16's scoring and before phase 14's training
+ 29. bf16 for the GP and image families: K2-bf16 and K3-bf16 at the bf16
+     decoders' rows with the runs' own weights (`check_bf16_family_kernels`:
+     32,768 to 1,048,576 rows scoring, O = 2 and 6; 4,096 to 131,072 a GP
+     step, 32,768 an image step), at phases 9-10's bars, two launches
+     bit-identical, each timed beside its bound, its plain version and the
+     bf16 cuBLAS chain;
+ 30. the 21 bar runs (`GP_BF16_RUNS`, `IMG_BF16_RUNS`) scored graphed in
+     bf16 and in float32 on the same functions or images, each run's
+     bf16-float32 mean-LL gap within `bf16_gap_bar` of the JAX package's
+     own fused-decoder gap, its Dense-decoder gap printed beside; for one
+     run of each family (`BF16_FAMILIES`) the graphed bf16 scores against
+     eager ones, the rows of the chain's launches, a traced replay's
+     launches (K2-bf16 once, K1 as in float32, none for GridConvLNP), a
+     replay's time, and the XL's bf16 peak memory;
+ 31. one batch of each of those runs in bf16 on the kernel path against
+     the plain-kernel path, held to the batch's bf16-float32 gap;
+ 32. nine training paths in bf16 (`GP16_TRAIN`: the GP ConvCNP and NPML
+     ConvLNP, CNP, LNP, AttnCNP, AttnLNP; `IMG16_TRAIN`: GridConvCNP, CNP
+     and LNP on `digits`) at their float32 paths' depths, seeds and bars:
+     graphed against eager, bit for bit, the fall and level bars, one step
+     of seed 0's trained model on the kernel path against the plain-kernel
+     path (phase 11's check with `rounding_grads`' allowance), the rows of
+     that step's chain launches, a traced replay's launches.
+Phases 17-32 run after phase 16's scoring and before phase 14's training
 loop. It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -258,6 +281,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -286,7 +310,8 @@ from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
 )
 from npf_gwwaveform_tpu_torch.ops.kernels.setconv import setconv_exprbf_fwd, setconv_exprbf_plain
 from npf_gwwaveform_tpu_torch.run_report import (
-    gp_band, gp_runs, gp_set_runs, img_runs, recorded_scores, score_bands, scored_runs,
+    bf16_gap_bar, gp_band, gp_bf16_bar_runs, gp_runs, gp_set_runs, img_bf16_bar_runs, img_runs,
+    recorded_scores, score_bands, scored_runs,
 )
 from npf_gwwaveform_tpu_torch.score import (
     batch_graph, eval_splitter, load_model, make_eval_batch, read_run_thetas, run_generator,
@@ -353,13 +378,17 @@ GRAD_RTOL = 1e-4
 # biases' gradients)
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_RTOL = 1e-3
-# a float32 gradient past STEP_GRAD_RTOL passes where the plain path, with
-# the outputs of the modules the kernels replace rounded apart by about half
-# an ulp, comes within the bar of the kernel path's in one of these draws
+# a gradient past its step bar (float32 STEP_GRAD_RTOL, bf16
+# BF16_STEP_GRAD_RTOL) passes where the plain path, with the float32
+# outputs of the modules the kernels replace rounded apart by about half an
+# ulp, comes within the bar of the kernel path's in one of these draws
 # (`rounding_grads`): on a trained unconditioned freq_ap model one decoder
 # ReLU mask in 1,048,576 switched under such noise and moved the first
 # SetConv's length-scale gradient by 2.6e-3 of itself, the plain path
-# landing on either side (PERF.md, section 6)
+# landing on either side (PERF.md, section 6); in bf16 half an ulp at K1's
+# outputs alone moved k=37's context length-scale gradient by 0.282 of its
+# largest value on the trained state where the kernel path sat 0.287 away
+# (tests/chip_seed_spread.py, ROADMAP section 3.20)
 ROUNDING_DRAWS = 8
 # traces of one replay a launch count may take: in 82 traced replays, two
 # runs of this script on an H100, the profiler left one launch out once (K1's 6.5 us
@@ -460,36 +489,48 @@ BF16_GAP_TOL, BF16_GAP_SES = 0.3, 3.0
 # (1 s paths 300-500 of 500-1,000, dilated's kept, the 2 s paths 200 of
 # 300, NPML and the
 # unbounded scale 500 of 1,000, ELBO 300 of 1,000). The other bf16 paths
-# keep the depths they had: their kernel-path step is compared with the
-# plain path on seed 0's trained model without `rounding_grads`' allowance,
-# and at 300 steps the k=37 one differs by 0.287 of its largest context
-# length-scale gradient (bar 0.1) on batch 4. That is the plain path's own
-# rounding: half an ulp at K1's float32 outputs alone moves it by 0.282
-# there, while on the 11 other trained models and batches (seeds 0-2, 300
-# and 500 steps, batches 4 and 5) the worst leaf is 0.0064-0.0105
-# (tests/chip_seed_spread.py, one call on the H100; PERF.md
-# section 7)
+# keep the depths they had. Their kernel-path step is compared with the
+# plain path on seed 0's trained model; at 300 steps the k=37 one differs
+# by 0.287 of its largest context length-scale gradient (bar 0.1) on batch
+# 4, the plain path's own rounding: half an ulp at K1's float32 outputs
+# alone moves it by 0.282 there, while on the 11 other trained models and
+# batches (seeds 0-2, 300 and 500 steps, batches 4 and 5) the worst leaf is
+# 0.0064-0.0105 (tests/chip_seed_spread.py, one call on the H100; PERF.md
+# section 7); `rounding_grads` now gives bf16 the float32 allowance for it.
+# Cut again once the bf16 GP and image phases came in, each to a depth at
+# which seed 0's 50-step means in the last call at the longer depth (the
+# same code and seed: the shorter run is the longer one's first steps) had
+# met its bars with room: additive bf16 1,000 -> 300 (fell 728 nats at
+# 1,000, bar 150; its 50-step mean at steps 251-300 -182 from a first
+# median of 478), UnetCNN 500 -> 300 (steps 251-300: 316 from 1,609, bar
+# 300) and bf16 1,000 -> 500 (steps 451-500: 339 from 1,606), freq FiLM
+# 500 -> 300 (-153 from 1,677, bar 500) and bf16 1,000 -> 500 (-212 from
+# 1,557), long k37 bf16 300 -> 200 (steps 151-200: -701 from 4,038, bar
+# 2,000), dilated bf16 500 -> 300 (steps 251-300: 579 from 1,489, bar 250),
+# freq 500 -> 300 (289 from 844, bar 300), latent NPML bf16 500 -> 300
+# (-251 from 432, bar 300, level -150), the unbounded scale 500 -> 300
+# (-184 from 292, level -100); PERF.md section 6
 FAMILY_SEEDS = (0, 1, 2)
 FAMILY_RUNS = (
-    ("additive", os.path.join(RESULTS, "GW_time_cond_ctx32", "ConvCNP", "run_0"), (300, 1000),
+    ("additive", os.path.join(RESULTS, "GW_time_cond_ctx32", "ConvCNP", "run_0"), (300, 300),
      FAMILY_SEEDS),
     ("dilated", os.path.join(RESULTS, "GW_time_cond_film_ctx64_d128_dil1-1-2-4-8", "ConvCNP",
-                             "run_0"), (500, 500), FAMILY_SEEDS),
+                             "run_0"), (500, 300), FAMILY_SEEDS),
     ("k37", os.path.join(RESULTS, "GW_time_cond_film_ctx64_d128_k37", "ConvCNP", "run_0"),
      (300, 500), FAMILY_SEEDS),
     ("unet", os.path.join(RESULTS, "GW_time_cond_film_ctx192_d128_unet", "ConvCNP", "run_0"),
-     (500, 1000), FAMILY_SEEDS),
+     (300, 500), FAMILY_SEEDS),
     ("long k37", os.path.join(RESULTS, "GW_time_cond_film_ctx1024_d512_k37_T2s_np2048_pallas",
-                              "ConvCNP", "run_1"), (200, LONG_TRAIN_STEPS), (0,)),
+                              "ConvCNP", "run_1"), (200, 200), (0,)),
     ("long unet", os.path.join(RESULTS, "GW_time_cond_film_ctx1024_d512_unet_T2s_np2048_pallas",
                                "ConvCNP", "run_0"), (200, LONG_TRAIN_STEPS), (0,)),
     # the frequency-domain configurations (phase 15)
-    ("freq film", FREQ_FILM, (500, 1000), FAMILY_SEEDS),
-    ("freq", FREQ_UNCOND, (500, 1000), FAMILY_SEEDS),
+    ("freq film", FREQ_FILM, (300, 500), FAMILY_SEEDS),
+    ("freq", FREQ_UNCOND, (300, 1000), FAMILY_SEEDS),
     # the latent configurations (phase 16)
-    ("latent npml", LATENT_NPML, (500, 500), FAMILY_SEEDS),
+    ("latent npml", LATENT_NPML, (500, 300), FAMILY_SEEDS),
     ("latent elbo", LATENT_ELBO, (300, 300), FAMILY_SEEDS),
-    ("latent latlbF", LATENT_LATLBF, (500, 500), FAMILY_SEEDS),
+    ("latent latlbF", LATENT_LATLBF, (300, 500), FAMILY_SEEDS),
 )
 FAMILY_CLIP = 1.0  # the long runs' grad_clip_norm
 FAMILY_FALL = {"additive": 150.0, "dilated": 250.0, "k37": 300.0, "unet": 300.0,
@@ -516,7 +557,18 @@ GP_NOTEBOOK = os.path.join(RESULTS, "RBF_Kernel", "ConvLNP_ELBOFalse_LatLBFalse_
 # one run of each family: graphed scoring against eager, one batch on the
 # kernel path against the plain path, one replay traced
 GP_FAMILIES = {GP_CNP: "gp cnp", GP_NPML: "gp npml", GP_ELBO: "gp elbo"}
-GP_N_TEST, GP_POINTS, GP_CONTEXT = 9984, 128, 50
+# the functions a kernel each GP run scores: 21 batches of 256, the fewest
+# after whose first `score_run` replays a graph (GRAPH_MIN_REPLAYS), and
+# more than the 4,992 (half the 9,984 JAX draws) whose mean its band's
+# bootstrap was built for. Cut from the record's 9,984 to keep the call
+# within its time once the bf16 phases came in: in the last call at
+# 9,984, every one of the 78 runs lay within 0.41 of its band's half-width
+# of the band's centre (PERF.md section 6)
+GP_N_TEST, GP_POINTS, GP_CONTEXT = 5376, 128, 50
+# each GP run's float32 per-function log-likelihoods from phases 19 and 21,
+# which phase 30 takes as its float32 scores (the same functions, splits
+# and draws: the same seed and count)
+GP_F32_LL = {}
 # phase 18: 4,096 functions of each kernel from one seed at one fixed x;
 # each sample covariance entry within 6 of its standard errors of the
 # kernel's (`data.gp.sample_covariance_z`; tests/test_torch_gp.py holds the
@@ -671,9 +723,46 @@ IMG_LEVEL = {k: round(b + min(2 * max(max(v) - min(v) for v in IMG_SEED_LAST[k] 
                                (a - b) / 2), 1)
              for k, (_, a, b) in IMG_JAX.items()}
 assert all(IMG_LEVEL[k] < a for k, (_, a, _) in IMG_JAX.items())
-# GridConvCNPXL on rgb_digits128: 20 graphed steps with the blocks'
-# activations stored, 5 rematerialised (the peak memory of each)
-IMG_XL_STEPS, IMG_XL_REMAT_STEPS = 20, 5
+# GridConvCNPXL on rgb_digits128: 8 graphed steps with the blocks'
+# activations stored, 3 rematerialised (the peak memory and step time of
+# each; no bar reads the losses but their finiteness, so the steps were cut
+# to keep the call within its time)
+IMG_XL_STEPS, IMG_XL_REMAT_STEPS = 8, 3
+
+# ---- bfloat16 for the GP and image families (phases 29-32): the 21 bar
+# runs (`run_report.GP_BF16_BARS`: RBF and Matern ConvCNP, ConvLNP, CNP,
+# LNP, AttnCNP and AttnLNP, and the ELBO ConvLNP ablation run;
+# `IMG_BF16_BARS`: the six digits runs, zsmms GridConvCNP run_1 and the XL
+# run_0), each scored in bf16 and in float32 on the same functions or
+# images, its bf16-float32 mean-LL gap held by phase 12's rule to the JAX
+# package's own gap with the fused MLP-chain decoder (`bf16_gap_bar`: within
+# the larger of BF16_GAP_TOL nats and BF16_GAP_SES standard errors;
+# tests/jax_bf16_family_gaps.py --gp-bf16 / --img-bf16, CPU, op by op, the
+# count it took in its entry), JAX's Dense-decoder gap printed beside. The
+# standard error is that of the difference of the two gaps, JAX's and the
+# port's own: the port scores its own draws (5,376 GP functions; each test
+# image under IMG_BF16_PASSES context masks, 1,280 draws of the 160 digits
+# images; the two slow models fewer), and on the 160 images alone its
+# noise would match JAX's
+IMG_BF16_PASSES = {"GridConvLNP": 4, "GridConvCNPXL": 2}
+IMG_BF16_PASSES_DEFAULT = 8
+GP_BF16_RUNS = tuple(gp_bf16_bar_runs(RESULTS))
+IMG_BF16_RUNS = tuple(img_bf16_bar_runs(RESULTS))
+assert len(GP_BF16_RUNS) + len(IMG_BF16_RUNS) == 21
+assert all("bf16_gap" in BF16_GAPS[os.path.relpath(r, RESULTS)]
+           for r in GP_BF16_RUNS + IMG_BF16_RUNS)
+# one run of each family in depth (the float32 phases' family runs, all bar
+# runs): graphed against eager, a traced replay, one batch on the kernel
+# path against the plain-kernel path
+BF16_FAMILIES = {**GP_FAMILIES, **SET_FAMILIES, **IMG_FAMILIES}
+assert set(BF16_FAMILIES) <= set(GP_BF16_RUNS + IMG_BF16_RUNS)
+# phase 32: nine training paths in bf16 at their float32 paths' depths,
+# seeds and bars (`GP_FALL`, `GP_LEVEL`, `IMG_FALL`, `IMG_LEVEL`), as
+# `FAMILY_FALL` holds both dtypes of the GW families
+GP16_TRAIN = tuple((n, s) for n, s in GP_TRAIN + SET_TRAIN
+                   if n in ("gp cnp", "gp npml", "set cnp", "set lnp", "set attncnp",
+                            "set attnlnp"))
+IMG16_TRAIN = tuple(t for t in IMG_TRAIN if t[0] in ("img gridconvcnp", "img cnp", "img lnp"))
 
 
 def img_call(model: str) -> tuple:
@@ -710,6 +799,18 @@ def phase(name: str) -> None:
            f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved"
            if torch.cuda.is_available() and torch.cuda.is_initialized() else "")
     print(f"== {name} (t={time.perf_counter() - _T0:.1f}s{mem})", flush=True)
+
+
+# the records' bands, printed beside each GP and image rescoring
+# (`run_report.gp_band`: a 10,000-resample bootstrap, about a second of host
+# time a run), computed on host threads while the card works (`main`)
+RECORD_BANDS = {}
+
+
+def record_band(run_dir) -> tuple:
+    """`gp_band(run_dir)`, from `RECORD_BANDS` where `main` started it."""
+    band = RECORD_BANDS.get(run_dir)
+    return gp_band(run_dir) if band is None else band.result()
 
 
 def release() -> None:
@@ -1020,7 +1121,8 @@ def _step_grad_errs(grads, ref):
     return errs, zero or {"(a model without BatchNorm)": 0.0}
 
 
-def check_train_step(model, summary, gen, dtype=None, term_scale=False, build=None, data=None):
+def check_train_step(model, summary, gen, dtype=None, term_scale=False, build=None, data=None,
+                     build32=None):
     """One train step on the kernel path against one on the plain path, on
     copies with identical parameters and one identical split batch. Each
     parameter's gradient is held to the step's gradient bar of its max
@@ -1040,13 +1142,17 @@ def check_train_step(model, summary, gen, dtype=None, term_scale=False, build=No
     scoring paths are held to: the two paths differ only where K1 and its
     plain version round their float32 sums apart, which moves later bf16
     roundings, and on the 2 s UnetCNN path that alone moved the loss by
-    1.09e-3 of its terms. In float32 a gradient past its bar is accepted
-    where the plain path reaches it (within the bar) itself when the
-    modules the kernels replace round apart (`rounding_grads`): a discrete
-    switch at a rounding boundary that either path may take. `build(use_kernels)`
-    and `data` (x, y, cond) give another family's trainer and batch (the GP
-    paths'); by default the GW run's (`train_gw.build_trainer`, fresh
-    waveforms drawn from `gen`)."""
+    1.09e-3 of its terms. In either dtype a gradient past its bar is
+    accepted where the plain path reaches it (within the bar) itself when
+    the modules the kernels replace round apart (`rounding_grads`): a
+    discrete switch at a rounding boundary that either path may take (in
+    bf16, K1's float32 outputs rounded apart by half an ulp moved the k=37
+    path's context length-scale gradient 0.282 of its largest value on the
+    trained state where the kernel path sat 0.287 from the plain one: ROADMAP
+    section 3.20). `build(use_kernels)` and `data` (x, y, cond) give another
+    family's trainer and batch (the GP and image paths'; `build32()` their
+    float32 kernel-path trainer for the bf16 gap); by default the GW run's
+    (`train_gw.build_trainer`, fresh waveforms drawn from `gen`)."""
     bf16 = dtype is not None
     loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL) if bf16
                             else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
@@ -1076,7 +1182,7 @@ def check_train_step(model, summary, gen, dtype=None, term_scale=False, build=No
         res[label] = (loss, {n: p.grad for n, p in trainer.model.named_parameters()})
     gap = None
     if bf16 and term_scale:
-        trainer = train_gw.build_trainer(summary, 1, "cuda")
+        trainer = build32() if build32 is not None else train_gw.build_trainer(summary, 1, "cuda")
         trainer.model.load_state_dict(model.state_dict())
         gap = abs(trainer.loss_and_grads(batch) - res["plain"][0]).item()
     torch.cuda.synchronize()
@@ -1085,9 +1191,10 @@ def check_train_step(model, summary, gen, dtype=None, term_scale=False, build=No
     loss_ok = loss_rel <= loss_rtol or (
         gap is not None and abs(loss_k - loss_p).item() <= BF16_PATH_MAX * gap)
     errs, zero = _step_grad_errs(grads_k, grads_p)
-    over = [] if bf16 else [n for n, e in errs.items() if e > grad_rtol]
+    over = [n for n, e in errs.items() if e > grad_rtol]
     if over:
-        draws = rounding_grads(summary, model.state_dict(), batch, over, lambda: build(False))
+        draws = rounding_grads(summary, model.state_dict(), batch, over, lambda: build(bf16),
+                               bf16)
         for n in over:
             scale = grads_p[n].abs().max().clamp_min(1e-30)
             reach = min((grads_k[n] - d[n]).abs().max() for d in draws) / scale
@@ -1110,15 +1217,18 @@ def check_train_step(model, summary, gen, dtype=None, term_scale=False, build=No
     return loss_rel, errs[worst]
 
 
-def rounding_grads(summary, state, batch, names, build=None) -> list:
-    """The float32 plain path's gradients of the parameters `names` on
-    `batch` from the model state `state`, once for each of `ROUNDING_DRAWS`
-    draws, with the outputs of the modules the kernels replace (both
-    SetConvs and the decoder) multiplied by 1 + 2^-24 n, n standard normal:
-    each output rounded apart by about half an ulp, as a kernel that sums
-    in another order rounds it (a set or attention model: its decoder).
-    `build()` gives the plain path's trainer (default
-    `train_gw.build_trainer`'s)."""
+def rounding_grads(summary, state, batch, names, build=None, bf16=False) -> list:
+    """The plain path's gradients of the parameters `names` on `batch` from
+    the model state `state`, once for each of `ROUNDING_DRAWS` draws, with
+    the float32 outputs of the modules the kernels replace multiplied by 1
+    + 2^-24 n, n standard normal: each output rounded apart by about half an
+    ulp, as a kernel that sums in another order rounds it. In float32 these
+    are the outputs of both SetConvs and the decoder (a set or attention
+    model: its decoder); in bf16 (`bf16`: the kernel path's model with each
+    kernel's plain version, `plain_kernels`) K1's float32 outputs, the only
+    float32 outputs a kernel there computes (K2-bf16 rounds as its plain
+    version does). `build()` gives the plain path's trainer (default
+    `train_gw.build_trainer`'s float32 one without kernels)."""
     noise = torch.Generator(device="cuda").manual_seed(0)
     if build is None:
         def build():
@@ -1128,15 +1238,21 @@ def rounding_grads(summary, state, batch, names, build=None) -> list:
         return out * (1.0 + 2.0 ** -24 * torch.randn(out.shape, generator=noise,
                                                       device=out.device))
 
+    def k1_rounded(*args):
+        return tuple(round_apart(None, None, t) for t in setconv_exprbf_plain(*args))
+
     draws = []
     for _ in range(ROUNDING_DRAWS):
         trainer = build()
         trainer.model.load_state_dict(state)
         m = trainer.model
-        hooks = [getattr(m, name).register_forward_hook(round_apart)
-                 for name in ("cntxt_to_induced", "induced_to_trgt", "decoder")
-                 if hasattr(m, name)]
-        trainer.loss_and_grads(batch)
+        hooks = [] if bf16 else [getattr(m, name).register_forward_hook(round_apart)
+                                 for name in ("cntxt_to_induced", "induced_to_trgt", "decoder")
+                                 if hasattr(m, name)]
+        with plain_kernels() if bf16 else contextlib.nullcontext():
+            if bf16:  # plain_kernels restores the wrapper
+                setconv.setconv_exprbf_fwd = k1_rounded
+            trainer.loss_and_grads(batch)
         for h in hooks:
             h.remove()
         draws.append({n: m.get_parameter(n).grad for n in names})
@@ -1755,13 +1871,14 @@ def check_resume() -> None:
             raise AssertionError("a resume into the run's own directory was not refused")
 
 
-def gp_recorded_trainer(summary):
-    """`check_graph_train`'s `recorded_trainer` for a GP configuration: a
-    trainer from seed 0 whose functions and context masks are kept."""
+def gp_recorded_trainer(summary, dtype=None):
+    """`check_graph_train`'s `recorded_trainer` for a GP configuration in
+    compute `dtype`: a trainer from seed 0 whose functions and context
+    masks are kept."""
     sampler = score_gp.samplers(summary["kernel"])[0]
 
     def make():
-        trainer = train_gp.build_trainer(summary, 100, 1562, "cuda", seed=0)
+        trainer = train_gp.build_trainer(summary, 100, 1562, "cuda", seed=0, dtype=dtype)
         draws, split = [], trainer.splitter
 
         def sample(g):
@@ -1864,8 +1981,9 @@ def check_gp_scores(runs, families, smi) -> tuple:
                                  f"the captures, not {tuple(2 * n_comp * c for c in call)}")
         if not (out["n"] == GP_N_TEST * n_comp and np.isfinite(out["ll"]).all()):
             raise AssertionError(f"{name}: non-finite or missing per-function results")
+        GP_F32_LL[run_dir] = out["ll"]
         lo, hi = BF16_GAPS[name]["f32_bands"]["mean_ll"]
-        r0, r1 = gp_band(run_dir)
+        r0, r1 = record_band(run_dir)
         inside = lo <= out["mean_ll"] <= hi
         print(f"{name}: mean LL {out['mean_ll']:.3f} over {out['n']} in [{lo:.2f}, {hi:.2f}] "
               f"(JAX's eval draws, the port's CPU forward, "
@@ -1935,17 +2053,20 @@ def check_gp_batch(run_dir, smi) -> dict:
     return dict(loc_err=loc_err, scale_err=scale_err, ll_err=ll_err)
 
 
-def check_gp_family(name, summary, smi) -> dict:
-    """Phase 20, one GP training path (`GP_TRAIN`): the graphed step
-    against the eager one, bit for bit (`check_graph_train`); 1,000 graphed
-    steps at batch 32 from seed 0 (seeds 1 and 2 only while no draw has
-    met the bars), each draw's median loss over the first and the last 50
-    steps (`GP_FALL`, `GP_LEVEL`); one step of seed 0's trained model on the
-    kernel path against the plain path; the launches of a traced replay of
-    seed 0's graph. -> the path's numbers."""
-    call = GP_TRAIN_CALL[name]
+def check_gp_family(name, summary, smi, dtype=None) -> dict:
+    """Phase 20, one GP training path (`GP_TRAIN`) in compute `dtype`
+    (phase 32 in bf16): the graphed step against the eager one, bit for
+    bit (`check_graph_train`); 1,000 graphed steps at batch 32 from seed 0
+    (seeds 1 and 2 only while no draw has met the bars), each draw's median
+    loss over the first and the last 50 steps (`GP_FALL`, `GP_LEVEL`, the
+    float32 path's in either dtype); one step of seed 0's trained model on
+    the kernel path against the plain path; the launches of a traced
+    replay of seed 0's graph. -> the path's numbers."""
+    call = GP_TRAIN_CALL[name] if dtype is None else bf16_call(GP_TRAIN_CALL[name])
+    label = name if dtype is None else f"{name} bf16"
     release()
-    graph_train = check_graph_train(summary, recorded_trainer=gp_recorded_trainer(summary),
+    graph_train = check_graph_train(summary, dtype,
+                                    recorded_trainer=gp_recorded_trainer(summary, dtype),
                                     expected=call)
     release()
     sampler = score_gp.samplers(summary["kernel"])[0]
@@ -1955,7 +2076,7 @@ def check_gp_family(name, summary, smi) -> dict:
 
     draws = []
     for seed in FAMILY_SEEDS:
-        trainer = train_gp.build_trainer(summary, 100, 1562, "cuda", seed=seed)
+        trainer = train_gp.build_trainer(summary, 100, 1562, "cuda", seed=seed, dtype=dtype)
         reset_counts()
         chunks, chunk_s = [], []
         t0 = time.perf_counter()
@@ -1971,15 +2092,15 @@ def check_gp_family(name, summary, smi) -> dict:
         early, late = float(np.median(losses[:50])), float(np.median(losses[-50:]))
         step_ms = 1e3 * float(np.median(chunk_s[1:])) / 50
         met = early - late >= GP_FALL[name] and late <= GP_LEVEL[name]
-        print(f"{name}, seed {seed}: {GP_TRAIN_STEPS} graphed steps in {seconds:.2f}s, "
+        print(f"{label}, seed {seed}: {GP_TRAIN_STEPS} graphed steps in {seconds:.2f}s, "
               f"{graph.replays} replays; 50-step mean losses: "
               + ", ".join(f"{v:.1f}" for v in losses.reshape(-1, 50).mean(axis=1)))
-        print(f"{name}, seed {seed}: median loss over the first 50 steps {early:.2f}, over the last "
+        print(f"{label}, seed {seed}: median loss over the first 50 steps {early:.2f}, over the last "
               f"50 {late:.2f} (fell {early - late:.2f} nats, bar {GP_FALL[name]:.0f}; level "
               f"{GP_LEVEL[name]:.0f}) met {met}; graphed train step {step_ms:.3f} ms (chunks of "
               f"50, host clock, synchronised), eager {graph_train['eager_step_ms']:.3f} ms; {smi}")
         if graph.replays != GP_TRAIN_STEPS or not np.isfinite(losses).all():
-            raise AssertionError(f"{name}, seed {seed}: {graph.replays} replays, finite "
+            raise AssertionError(f"{label}, seed {seed}: {graph.replays} replays, finite "
                                  f"{np.isfinite(losses).all()}")
         draws.append(dict(seed=seed, early=early, late=late, step_ms=step_ms, met=met))
         if seed == FAMILY_SEEDS[0]:
@@ -1990,15 +2111,18 @@ def check_gp_family(name, summary, smi) -> dict:
         if met:
             break
     if not any(d["met"] for d in draws):
-        raise AssertionError(f"{name}: the loss fell by {GP_FALL[name]} nats to {GP_LEVEL[name]} "
-                             "in no draw")
+        raise AssertionError(f"{label}: the loss fell by {GP_FALL[name]} nats to "
+                             f"{GP_LEVEL[name]} in no draw")
     trainer, counted, graph = first
     data = sample(torch.Generator(device="cuda").manual_seed(4))
-    check_train_step(trainer.model, summary, torch.Generator(device="cuda").manual_seed(4),
-                     term_scale=True, data=data,
-                     build=lambda use_kernels: train_gp.build_trainer(
-                         summary, 100, 1562, "cuda", use_kernels=use_kernels))
-    path = path_launches(f"{name} training", counted, graph, WARMUP_CALLS + 1, call)
+    with recorded_rows() as rows:
+        check_train_step(trainer.model, summary, torch.Generator(device="cuda").manual_seed(4),
+                         dtype, term_scale=True, data=data,
+                         build=lambda use_kernels: train_gp.build_trainer(
+                             summary, 100, 1562, "cuda", use_kernels=use_kernels, dtype=dtype),
+                         build32=lambda: train_gp.build_trainer(summary, 100, 1562, "cuda"))
+    print_rows(f"{label} train step", rows, dtype)
+    path = path_launches(f"{label} training", counted, graph, WARMUP_CALLS + 1, call)
     return dict(path=path, step_ms=draws[0]["step_ms"], eager_step_ms=graph_train["eager_step_ms"],
                 draws=draws)
 
@@ -2112,7 +2236,7 @@ def check_img_scores(smi) -> tuple:
         if not (out["n"] == summary["n_test"] and np.isfinite(out["ll"]).all()):
             raise AssertionError(f"{name}: non-finite or missing per-image results")
         lo, hi = BF16_GAPS[name]["f32_bands"]["mean_ll"]
-        r0, r1 = gp_band(run_dir)
+        r0, r1 = record_band(run_dir)
         inside = lo <= out["mean_ll"] <= hi
         print(f"{name}: mean LL {out['mean_ll']:.3f} over {out['n']} images in [{lo:.2f}, "
               f"{hi:.2f}] (JAX's eval draws, the port's CPU forward, "
@@ -2200,23 +2324,25 @@ def check_img_diag(smi) -> dict:
     return res
 
 
-def check_img_graph_train(model, dataset, images) -> None:
-    """Phase 28: three graphed train steps of an image configuration against
-    three eager steps from a trainer with the same init and generator seed:
-    losses, parameters and statistics bit-identical."""
+def check_img_graph_train(model, dataset, images, dtype=None) -> None:
+    """Phase 28 (32 in bf16): three graphed train steps of an image
+    configuration in compute `dtype` against three eager steps from a
+    trainer with the same init and generator seed: losses, parameters and
+    statistics bit-identical."""
     y_dim = images.shape[-1]
     sample = train_img.image_sampler(images, TRAIN_BATCH)
-    eager = train_img.build_trainer(model, dataset, y_dim, 50, 50, "cuda", seed=0)
+    eager = train_img.build_trainer(model, dataset, y_dim, 50, 50, "cuda", seed=0, dtype=dtype)
     e_losses = torch.stack([eager._update(*sample(eager.state.generator))["loss"]
                             for _ in range(3)])
     e_state = {k: t.clone() for k, t in eager.model.state_dict().items()}
     del eager  # one trainer's activations at a time (the attention models' are large)
     release()
-    graphed = train_img.build_trainer(model, dataset, y_dim, 50, 50, "cuda", seed=0)
+    graphed = train_img.build_trainer(model, dataset, y_dim, 50, 50, "cuda", seed=0, dtype=dtype)
     g_losses = graphed.train_steps_generated(sample, 3)
     same = torch.equal(e_losses, g_losses) and all(
         torch.equal(e_state[k], t) for k, t in graphed.model.state_dict().items())
-    print(f"{model} on {dataset}: three graphed steps against three eager ones, losses "
+    print(f"{model} on {dataset}{' (bf16)' if dtype is not None else ''}: three graphed steps "
+          f"against three eager ones, losses "
           f"{g_losses.tolist()}, parameters and statistics bit-identical {same}")
     if not same:
         raise AssertionError(f"{model} on {dataset}: the graphed step differs from the eager one")
@@ -2233,23 +2359,27 @@ def _img_stat(kind, losses) -> tuple:
     return float(first[kind]()), float(last)
 
 
-def check_img_family(name, model, dataset, steps, smi) -> dict:
-    """Phase 28, one image training path (`IMG_TRAIN`): the graphed step
-    against the eager one (`check_img_graph_train`); `steps` graphed steps
-    at batch 32 from seed 0 (seeds 1 and 2 only while no draw has met the
-    bars) through `train_img.train`, each draw's first and last value
-    by its bars' statistic (`IMG_JAX`) held to `IMG_FALL` and `IMG_LEVEL`;
-    the launches of a traced replay of seed 0's graph. -> the path's
+def check_img_family(name, model, dataset, steps, smi, dtype=None) -> dict:
+    """Phase 28, one image training path (`IMG_TRAIN`) in compute `dtype`
+    (phase 32 in bf16): the graphed step against the eager one
+    (`check_img_graph_train`); `steps` graphed steps at batch 32 from seed
+    0 (seeds 1 and 2 only while no draw has met the bars) through
+    `train_img.train`, each draw's first and last value by its bars'
+    statistic (`IMG_JAX`) held to `IMG_FALL` and `IMG_LEVEL` (the float32
+    path's in either dtype); in bf16 one step of seed 0's trained model on
+    the kernel path against the plain-kernel path (phase 11's check); the
+    launches of a traced replay of seed 0's graph. -> the path's
     numbers."""
     train_ds, _ = get_train_test_img_dataset(dataset)
     images = train_ds.images.cuda()
-    check_img_graph_train(model, dataset, images)
+    label = name if dtype is None else f"{name} bf16"
+    check_img_graph_train(model, dataset, images, dtype)
     sched = train_img.schedule(len(train_ds), 50, TRAIN_BATCH, steps)
     kind = IMG_JAX[name][0]
     draws = []
     for seed in FAMILY_SEEDS:
         trainer = train_img.build_trainer(model, dataset, images.shape[-1], 50,
-                                          sched["steps_per_epoch"], "cuda", seed)
+                                          sched["steps_per_epoch"], "cuda", seed, dtype=dtype)
         reset_counts()
         history, losses, seconds = train_img.train(trainer, images, TRAIN_BATCH, sched,
                                                    verbose=False)
@@ -2260,19 +2390,34 @@ def check_img_family(name, model, dataset, steps, smi) -> dict:
         step_ms = 1e3 * float(np.median(np.diff([0.0] + [h["dur"] for h in history])[1:])) \
             / sched["chunk"]
         met = first - last >= IMG_FALL[name] and last <= IMG_LEVEL[name]
-        print(f"{name}, seed {seed}: {sched['steps']} graphed steps in {seconds:.2f}s, "
+        print(f"{label}, seed {seed}: {sched['steps']} graphed steps in {seconds:.2f}s, "
               f"{graph.replays} replays; 50-step mean losses: "
               + ", ".join(f"{v:.1f}" for v in losses.reshape(-1, 50).mean(axis=1)))
-        print(f"{name}, seed {seed}: {kind} first {first:.2f}, last {last:.2f} (fell "
+        print(f"{label}, seed {seed}: {kind} first {first:.2f}, last {last:.2f} (fell "
               f"{first - last:.2f}, bar {IMG_FALL[name]:.1f}; level {IMG_LEVEL[name]:.1f}) met "
               f"{met}; graphed train step {step_ms:.3f} ms (chunks of {sched['chunk']}, host "
               f"clock, synchronised); {smi}")
         if graph.replays != sched["steps"] or not np.isfinite(losses).all():
-            raise AssertionError(f"{name}, seed {seed}: {graph.replays} replays, finite "
+            raise AssertionError(f"{label}, seed {seed}: {graph.replays} replays, finite "
                                  f"{np.isfinite(losses).all()}")
         draws.append(dict(seed=seed, first=first, last=last, step_ms=step_ms, met=met))
         if seed == FAMILY_SEEDS[0]:
             first_run = (counted, graph)
+            if dtype is not None:
+                y_dim = images.shape[-1]
+                spe = sched["steps_per_epoch"]
+                y = train_img.image_sampler(images, TRAIN_BATCH)(
+                    torch.Generator(device="cuda").manual_seed(4))
+                with recorded_rows() as rows:
+                    check_train_step(trainer.model, None,
+                                     torch.Generator(device="cuda").manual_seed(4), dtype,
+                                     term_scale=True, data=y,
+                                     build=lambda use_kernels: train_img.build_trainer(
+                                         model, dataset, y_dim, 50, spe, "cuda",
+                                         use_kernels=use_kernels, dtype=dtype),
+                                     build32=lambda: train_img.build_trainer(
+                                         model, dataset, y_dim, 50, spe, "cuda"))
+                print_rows(f"{label} train step", rows, dtype)
         else:
             del graph
         del trainer
@@ -2280,11 +2425,12 @@ def check_img_family(name, model, dataset, steps, smi) -> dict:
         if met:
             break
     if not any(d["met"] for d in draws):
-        raise AssertionError(f"{name}: the loss fell by {IMG_FALL[name]} nats to "
+        raise AssertionError(f"{label}: the loss fell by {IMG_FALL[name]} nats to "
                              f"{IMG_LEVEL[name]} in no draw")
     counted, graph = first_run
-    path = path_launches(f"{name} training", counted, graph, WARMUP_CALLS + 1,
-                         img_train_call(model))
+    call = img_train_call(model)
+    path = path_launches(f"{label} training", counted, graph, WARMUP_CALLS + 1,
+                         call if dtype is None else bf16_call(call))
     del graph
     release()
     return dict(path=path, step_ms=draws[0]["step_ms"], draws=draws)
@@ -2361,6 +2507,314 @@ def run_img_phases(gen, smi) -> dict:
     return dict(kernels=kernels, score_paths=score_paths, train=train)
 
 
+def bf16_call(call: tuple) -> tuple:
+    """A float32 path's launches (K1, K2, K3, K2-bf16, K3-bf16) in bf16: K1
+    as it is (float32 in either dtype), K2 and K3 as their bf16 kernels."""
+    return (call[0], 0, 0, call[1], call[2])
+
+
+@contextlib.contextmanager
+def recorded_rows():
+    """Inside, each forward and backward of the MLP chain's autograd
+    Function (K2 and K3, or K2-bf16 and K3-bf16, on the kernel path)
+    appends (kernel, rows, dtype) to the list yielded: the rows a launch
+    of it runs on the path."""
+    rows = []
+    fwd, bwd = mlp_chain.FusedReluMLPFn.forward, mlp_chain.FusedReluMLPFn.backward
+
+    def rec_fwd(ctx, x, *args):
+        rows.append(("K2", x.shape[0], x.dtype))
+        return fwd(ctx, x, *args)
+
+    def rec_bwd(ctx, g):
+        rows.append(("K3", g.shape[0], g.dtype))
+        return bwd(ctx, g)
+
+    mlp_chain.FusedReluMLPFn.forward = staticmethod(rec_fwd)
+    mlp_chain.FusedReluMLPFn.backward = staticmethod(rec_bwd)
+    try:
+        yield rows
+    finally:
+        mlp_chain.FusedReluMLPFn.forward = staticmethod(fwd)
+        mlp_chain.FusedReluMLPFn.backward = staticmethod(bwd)
+
+
+def print_rows(label, rows, dtype=None) -> dict:
+    """Print the distinct row counts of the chain launches recorded in
+    `rows` (`recorded_rows`) in compute `dtype` -> {kernel: sorted counts}."""
+    dt = torch.float32 if dtype is None else dtype
+    out = {}
+    for kernel, m, d in rows:
+        if d == dt:
+            name = kernel if dtype is None else f"{kernel}-bf16"
+            out.setdefault(name, set()).add(int(m))
+    out = {k: sorted(v) for k, v in out.items()}
+    print(f"{label}: rows a launch of the chain (recorded at its autograd Function) {out or 'none'}")
+    return out
+
+
+def check_bf16_family_kernels(gen) -> dict:
+    """Phase 29: K2-bf16 and K3-bf16 at the bf16 GP and image paths' decoder
+    rows with the runs' own decoder weights (C = H = 128, L1 = 3; O = 2, or
+    6 on the RGB corpora): K2-bf16 at the scoring batches (the GP ConvCNP,
+    CNP and AttnCNP 256 functions x 128 points, 32,768 rows; AttnLNP's 8
+    draws 262,144; LNP's 32 draws 1,048,576; 32 images of 32x32, 32,768, at
+    O = 2 and 6; the XL's 524,288 at O = 6; the image LNP's 32 draws
+    1,048,576 at O = 2 and 6) and the train steps (4,096 for 32 GP
+    functions, the NPML AttnLNP's 32,768 and SUMO LNP's 131,072), K3-bf16 at
+    the train steps (4,096; 32,768 and 131,072; 32,768 for the image
+    GridConvCNP, CNP and LNP); each at phases 9-10's bars (its plain
+    version's rounding), two launches bit-identical, timed in a CUDA graph
+    beside the bound, the plain version and the bf16 cuBLAS chain. ->
+    {"K2-bf16": rows, "K3-bf16": rows}."""
+    w = {k: chain_weights(score_gp.load_model(r, "cuda").decoder.module)
+         for k, r in (("gp cnp", GP_CNP), ("set cnp", SET_CNP), ("set attncnp", SET_ATTNCNP),
+                      ("set lnp", SET_LNP), ("set attnlnp", SET_ATTNLNP))}
+    for k, (d, m) in {"img cnp": ("digits", "GridConvCNP"), "img rgb": ("rgb_digits", "GridConvCNP"),
+                      "img xl": ("rgb_digits128", "GridConvCNPXL"),
+                      "img set cnp": ("digits", "CNP"), "img set lnp": ("digits", "LNP"),
+                      "img rgb lnp": ("rgb_digits", "LNP")}.items():
+        w[k] = chain_weights(score_img.load_model(os.path.join(RESULTS, d, m, "run_0"),
+                                                  "cuda").decoder.module)
+    score, train, img, xl = 256 * GP_POINTS, TRAIN_BATCH * GP_POINTS, 32 * 32 * 32, 32 * 128 * 128
+
+    def k2(name, M, key, O=2):
+        return (f"decoder bf16 {name}", k2_inputs(M, 128, 128, 3, O, True, gen, w[key], BF16),
+                False)
+
+    def k3(name, M, key, O=2):
+        return (f"decoder bf16 {name}", k3_inputs(M, 128, 128, 3, O, True, gen, w[key][:5], BF16),
+                False)
+
+    with torch.inference_mode():
+        k2_rows = check_k2_bf16([
+            k2("gp cnp", score, "gp cnp"), k2("gp cnp train", train, "gp cnp"),
+            k2("set cnp", score, "set cnp"), k2("set attncnp", score, "set attncnp"),
+            k2("set attnlnp", 8 * score, "set attnlnp"), k2("set lnp", 32 * score, "set lnp"),
+            k2("set cnp train", train, "set cnp"),
+            k2("set attnlnp npml train", 8 * train, "set attnlnp"),
+            k2("set lnp sumo train", 32 * train, "set lnp"),
+            k2("img gridconvcnp", img, "img cnp"), k2("img rgb", img, "img rgb", 6),
+            k2("img xl", xl, "img xl", 6), k2("img cnp", img, "img set cnp"),
+            k2("img lnp", 32 * img, "img set lnp"), k2("img rgb lnp", 32 * img, "img rgb lnp", 6),
+        ])
+        k3_rows = check_k3_bf16([
+            k3("gp cnp train", train, "gp cnp"), k3("set cnp train", train, "set cnp"),
+            k3("set attnlnp train", train, "set attnlnp"),
+            k3("set attnlnp npml train", 8 * train, "set attnlnp"),
+            k3("set lnp sumo train", 32 * train, "set lnp"),
+            k3("img gridconvcnp train", img, "img cnp"), k3("img cnp train", img, "img set cnp"),
+            k3("img lnp train", img, "img set lnp"),
+        ])
+    return {"K2-bf16": k2_rows, "K3-bf16": k3_rows}
+
+
+def _bar_run(run_dir) -> tuple:
+    """(summary, kernels a GP run scores or 1 for an image run, float32 call,
+    score(dtype, graphed) -> {ll, n, mean_ll, seconds, graph(s)}) of a bar
+    run: a GP run's GP_N_TEST functions a kernel (`score_gp.score_run`; in
+    float32 phases 19 and 21's scores, `GP_F32_LL`), an image run's test
+    set `IMG_BF16_PASSES` times over, each pass under other context masks
+    and z draws (`score_img.score_images`)."""
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    if run_dir in GP_BF16_RUNS:
+        def score(dtype, graphed=True):
+            if dtype is None and graphed and run_dir in GP_F32_LL:
+                return {"ll": GP_F32_LL[run_dir]}
+            if graphed:
+                return score_gp.score_run(run_dir, GP_N_TEST, "cuda", dtype=dtype)
+            with no_graphs():
+                return score_gp.score_run(run_dir, GP_N_TEST, "cuda", dtype=dtype)
+        return summary, len(score_gp.samplers(summary["kernel"])[1]), gp_call(summary), score
+
+    _, test = get_train_test_img_dataset(summary["dataset"])
+    passes = IMG_BF16_PASSES.get(summary["model"], IMG_BF16_PASSES_DEFAULT)
+    images = test.images.repeat(passes, 1, 1, 1)
+    splitter = score_img.splitter_for(summary["model"], score_img.test_upscale(test))
+
+    def score(dtype, graphed=True):
+        model = score_img.load_model(run_dir, "cuda", dtype=dtype)
+        out = score_img.score_images(model, splitter, images, "cuda", graphed=graphed)
+        return dict(out, n=int(out["ll"].shape[0]), mean_ll=float(out["ll"].mean()))
+    return summary, 1, img_call(summary["model"]), score
+
+
+def check_bf16_scores(smi) -> tuple:
+    """Phases 30-31: each of the 21 bar runs (`GP_BF16_RUNS`, `IMG_BF16_RUNS`)
+    scored in float32 and in bf16 (`_bar_run`: GP_N_TEST fresh functions a
+    kernel, or the test set several times over), the
+    same functions or images, splits and z draws in both dtypes, every batch
+    after a kernel's first replayed from its CUDA graph; the wrappers'
+    counts at the eager batches and the captures (K2-bf16 in place of K2);
+    the bf16-float32 mean-LL gap held to `bf16_gap_bar` (the JAX package's
+    own gap with the fused MLP-chain decoder, within the larger of 0.3 nats
+    and 3 standard errors of the two gaps' difference), JAX's Dense-decoder
+    gap printed beside.
+    For one run of each family (`BF16_FAMILIES`): the graphed bf16 scores
+    against eager ones (GP: `GRAPH_LL_ATOL`; images: `IMG_GRAPH_LL_RTOL` of
+    each |LL|), the chain's rows recorded at the eager batches, the launches
+    of a traced replay, a replay's time; the XL's peak memory in bf16. ->
+    ({family: `path_launches`}, {family: (eager ms, replay ms)}, gaps)."""
+    misses, paths, batch_ms, gaps = [], {}, {}, {}
+    for run_dir in GP_BF16_RUNS + IMG_BF16_RUNS:
+        name = os.path.relpath(run_dir, RESULTS)
+        summary, n_comp, call, score = _bar_run(run_dir)
+        call16 = bf16_call(call)
+        ll32 = score(None)["ll"].astype(np.float64)
+        release()
+        if run_dir == IMG_XL:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = score(BF16)
+        counted = counts()
+        graphs = out["graphs"] if "graphs" in out else [out["graph"]]
+        n_batches = out["n"] // (n_comp * (256 if run_dir in GP_BF16_RUNS
+                                           else score_img.EVAL_BATCH))
+        if not (len(graphs) == n_comp and all(g is not None and g.replays == n_batches - 1
+                                              for g in graphs)):
+            raise AssertionError(f"{name}: scored in bf16 without its batch graphs")
+        if counted != tuple(2 * n_comp * c for c in call16):
+            raise AssertionError(f"{name}: bf16 wrapper launches {counted} at the eager batches "
+                                 f"and the captures, not {tuple(2 * n_comp * c for c in call16)}")
+        if not (np.isfinite(out["ll"]).all() and out["ll"].shape == ll32.shape):
+            raise AssertionError(f"{name}: non-finite or missing bf16 results")
+        d = out["ll"].astype(np.float64) - ll32
+        gap = BF16_GAPS[name]["bf16_gap"]
+        centre, half = bf16_gap_bar(gap, float(d.std() / np.sqrt(d.shape[0])))
+        inside = abs(d.mean() - centre) <= half
+        memory = ""
+        if run_dir == IMG_XL:
+            memory = f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        gaps[name] = dict(n=int(d.shape[0]), d_mean_ll=float(d.mean()), d_ll_std=float(d.std()),
+                          mean_ll_bf16=float(out["mean_ll"]), mean_ll_f32=float(ll32.mean()),
+                          jax_fused=gap["fused"]["d_mean_ll"], jax_dense=gap["dense"]["d_mean_ll"],
+                          bar=[centre - half, centre + half], inside=bool(inside))
+        print(f"{name}: bf16 mean LL {out['mean_ll']:.3f}, float32 {ll32.mean():.3f} over "
+              f"{d.shape[0]}; gap {d.mean():+.4f} (sd {d.std():.3f}) in [{centre - half:+.3f}, "
+              f"{centre + half:+.3f}] (JAX's fused-decoder gap {centre:+.3f} over {gap['n']}, its "
+              f"Dense-decoder gap {gap['dense']['d_mean_ll']:+.3f}) {inside}; launches {counted}; "
+              f"{out['seconds']:.2f}s{memory}")
+        if not inside:
+            misses.append(name)
+        kind = BF16_FAMILIES.get(run_dir)
+        if kind is not None:
+            graph = graphs[0]
+            paths[kind] = path_launches(f"{kind} bf16 scoring", counted, graph, 2, call16)
+            t = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                graph.replay()
+                torch.cuda.synchronize()
+                t.append(time.perf_counter() - t0)
+            reset_counts()
+            with recorded_rows() as rows:
+                eager = score(BF16, graphed=False)
+            if counts() != tuple(n_comp * n_batches * c for c in call16):
+                raise AssertionError(f"{name}: eager bf16 scoring launched {counts()}")
+            print_rows(f"{kind} bf16 scoring", rows, BF16)
+            diff = np.abs(out["ll"] - eager["ll"])
+            bar = (np.full(diff.shape, GRAPH_LL_ATOL) if run_dir in GP_BF16_RUNS
+                   else IMG_GRAPH_LL_RTOL * np.maximum(np.abs(eager["ll"]), 1.0))
+            batch_ms[kind] = (1e3 * eager["seconds"] / (n_comp * n_batches),
+                              1e3 * float(np.median(t)))
+            print(f"{name}: graphed against eager bf16 scoring, largest LL difference "
+                  f"{diff.max():.3e} (worst against its bar {(diff / bar).max():.2e}); one batch "
+                  f"replayed {batch_ms[kind][1]:.3f} ms (median of 5, host clock), eager "
+                  f"{batch_ms[kind][0]:.3f} ms (mean); {smi}")
+            if (diff > bar).any():
+                raise AssertionError(f"{name}: graphed bf16 scoring differs from eager scoring")
+            del eager, graph
+        del out, graphs
+        release()
+    n_runs = len(GP_BF16_RUNS) + len(IMG_BF16_RUNS)
+    print(f"{n_runs - len(misses)} of {n_runs} bar runs' bf16-float32 gaps within their bars "
+          f"({smi})")
+    if misses:
+        raise AssertionError(f"bf16 gaps outside their bars: {', '.join(misses)}")
+    return paths, batch_ms, gaps
+
+
+def check_bf16_batch(run_dir, smi) -> dict:
+    """Phase 31: one batch of a bar run (256 GP functions, or the first 32
+    test images) in bf16 on the kernel path against the plain-kernel path
+    (`plain_kernels`), the functions, splits and z draws from generators
+    seeded alike, held to the bf16-float32 gap of the same batch (the
+    float32 kernel path's), phase 11's bars: the RMS distance of loc at
+    most `BF16_PATH_RMS` of the gap's RMS, the largest `BF16_PATH_MAX` of
+    the gap's largest. A path without K1 gives the same bits on both (K2-bf16
+    rounds as its plain version)."""
+    summary, _, _, _ = _bar_run(run_dir)
+    if run_dir in GP_BF16_RUNS:
+        sampler, splitter = score_gp.samplers(summary["kernel"])[1][0], score_gp.eval_splitter()
+        load = lambda dtype: score_gp.load_model(run_dir, "cuda", dtype=dtype)  # noqa: E731
+        batch = lambda m, g: score_gp.score_batch(m, splitter, g, sampler)  # noqa: E731
+    else:
+        _, test = get_train_test_img_dataset(summary["dataset"])
+        splitter = score_img.splitter_for(summary["model"], score_img.test_upscale(test))
+        y = test.images[:score_img.EVAL_BATCH].cuda()
+        load = lambda dtype: score_img.load_model(run_dir, "cuda", dtype=dtype)  # noqa: E731
+        batch = lambda m, g: score_img.score_batch(m, splitter, g, y)  # noqa: E731
+    outs = {}
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for label, dtype, ctx in (("kernel", BF16, contextlib.nullcontext),
+                                  ("plain-kernel", BF16, plain_kernels),
+                                  ("float32", None, contextlib.nullcontext)):
+            model = load(dtype)
+            with ctx():
+                ll, o = batch(model, torch.Generator(device="cuda").manual_seed(1))
+            outs[label] = (o.p_yCc.loc.clone(), o.p_yCc.scale.clone(), ll.clone())
+            del model, o
+    rms = lambda a: a.float().square().mean().sqrt().item()  # noqa: E731
+    loc_k, loc_p, loc_32 = outs["kernel"][0], outs["plain-kernel"][0], outs["float32"][0]
+    near, gap = rms(loc_k - loc_p), rms(loc_k - loc_32)
+    near_max, gap_max = (loc_k - loc_p).abs().max().item(), (loc_k - loc_32).abs().max().item()
+    ll_err = (outs["kernel"][2] - outs["plain-kernel"][2]).abs().max().item()
+    print(f"{os.path.relpath(run_dir, RESULTS)}: one bf16 batch x {loc_k.shape[0]} draws, kernel "
+          f"vs plain-kernel path: loc RMS {near:.3e}, largest {near_max:.3e}; the bf16-float32 "
+          f"gap of the same batch: RMS {gap:.3e}, largest {gap_max:.3e}; LL {ll_err:.3e}; {smi}")
+    if not (near <= BF16_PATH_RMS * gap and near_max <= BF16_PATH_MAX * gap_max):
+        raise AssertionError(f"{run_dir}: the bf16 kernel path disagrees with its plain-kernel "
+                             "path")
+    return dict(loc_rms=near, loc_max=near_max, gap_rms=gap, gap_max=gap_max, ll_err=ll_err)
+
+
+def run_bf16_family_phases(gen, smi) -> dict:
+    """Phases 29-32, bfloat16 for the GP and image families, in order
+    (module docstring)."""
+    phase("bf16 GP and image kernels: K2-bf16 and K3-bf16 at the bf16 decoders' rows with the "
+          "runs' own weights vs plain")
+    kernels = check_bf16_family_kernels(gen)
+    release()
+    phase("the 21 bar runs in bf16 and float32: each scored graphed on the same functions or "
+          "images, the bf16-float32 gap held to JAX's own; one run of each family against eager "
+          "scoring")
+    score_paths, batch_ms, gaps = check_bf16_scores(smi)
+    phase("the bf16 GP and image paths: one batch of each family, kernel path vs plain-kernel path")
+    batch = {BF16_FAMILIES[r]: check_bf16_batch(r, smi) for r in BF16_FAMILIES}
+    release()
+    train = {}
+    for name, gp_summary in GP16_TRAIN:
+        phase(f"bf16 GP training path {name}: {gp_summary['model']} on {gp_summary['kernel']}, "
+              f"graphed against eager, {GP_TRAIN_STEPS} graphed steps from seeds {FAMILY_SEEDS}, "
+              "kernel path against plain-kernel path")
+        train[name] = check_gp_family(name, gp_summary, smi, BF16)
+    for name, model, dataset, steps in IMG16_TRAIN:
+        phase(f"bf16 image training path {name}: {model} on {dataset}, graphed against eager, "
+              f"{steps} graphed steps from seeds {FAMILY_SEEDS}, kernel path against "
+              "plain-kernel path")
+        train[name] = check_img_family(name, model, dataset, steps, smi, BF16)
+    release()
+    free, total = torch.cuda.mem_get_info()
+    print(f"bf16 GP and image paths (host clock, synchronised; {smi}): " + json.dumps(
+        {"score_batch_ms": batch_ms, "batch": batch, "gaps": gaps,
+         "train": {k: {m: f[m] for m in ("step_ms", "draws")} for k, f in train.items()},
+         "card_memory_gib": {"used": (total - free) / 2**30, "total": total / 2**30,
+                             "peak_allocated": torch.cuda.max_memory_allocated() / 2**30}}))
+    return dict(kernels=kernels, score_paths=score_paths, train=train)
+
+
 def kernel_entry(name, source, replaces, launches, rows, path_shapes, launches_by_path):
     """One kernel's line entry: times summed over the shapes one train step
     runs, the largest error over every shape checked; `launches` is the
@@ -2396,6 +2850,10 @@ def main() -> int:
     # float32 one-step check above measured 3e-5 to 1.2e-3 (one model in
     # eight over its bar) on the models they reached (PERF.md, section 6)
     torch.backends.cudnn.deterministic = True
+
+    band_threads = ThreadPoolExecutor(max_workers=4)
+    RECORD_BANDS.update({r: band_threads.submit(gp_band, r)
+                         for r in GP_RUNS + SET_RUNS + IMG_RUNS})
 
     phase("build")
     res = _build.build(verbose=True)
@@ -2918,6 +3376,11 @@ def main() -> int:
     k2_rows += img["kernels"]["K2"]
     k3_rows += img["kernels"]["K3"]
 
+    release()
+    fam16 = run_bf16_family_phases(gen, smi)
+    k2b_rows += fam16["kernels"]["K2-bf16"]
+    k3b_rows += fam16["kernels"]["K3-bf16"]
+
     families = {}
     for name, run_dir, dtype_steps, seeds in FAMILY_RUNS:
         for dtype, steps in zip((None, BF16), dtype_steps):
@@ -2947,7 +3410,11 @@ def main() -> int:
              **{f"score_{k.replace(' ', '_')}": p for k, p in gp_score_paths.items()},
              **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in gp_families.items()},
              **{f"score_{k.replace(' ', '_')}": p for k, p in img["score_paths"].items()},
-             **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in img["train"].items()}}
+             **{f"train_{k.replace(' ', '_')}": f["path"] for k, f in img["train"].items()},
+             **{f"score_bf16_{k.replace(' ', '_')}": p
+                for k, p in fam16["score_paths"].items()},
+             **{f"train_bf16_{k.replace(' ', '_')}": f["path"]
+                for k, f in fam16["train"].items()}}
     print(f"long-waveform batch times (host clock; {smi}): " + json.dumps(long_ms))
     print(f"latent batches, kernel vs plain path (host clock; {smi}): " + json.dumps(latent_batch))
 
@@ -2974,6 +3441,7 @@ def main() -> int:
                      "npf_gwwaveform_tpu_torch/csrc/mlp_chain_bwd_bf16.cu", f"{mlp}:83",
                      train16_path["launches"][4], k3b_rows, ("decoder train",), launches_by_path(4)),
     ]
+    band_threads.shutdown()
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -197,7 +197,8 @@ def gp_model_variant(name: str, is_elbo: bool, is_lat_lb: bool, is_sig_lb: bool,
     softplus. LNP and AttnLNP keep `gp_model_1d`'s architecture. The
     ConvLNP "notebook" architecture has z_dim 16 (`reshaper_z` maps it to
     r_dim) and no global latent; the headline one (`headline_arch`) keeps
-    z_dim = r_dim and the global latent. Both decode linearly."""
+    z_dim = r_dim and the global latent. Both decode linearly, the notebook
+    one in float32 whatever `dtype` (its JAX Dense has no dtype)."""
     if name not in LATENT_MODELS:
         raise ValueError(f"{name} has no objective-ablation variant")
     scale = {} if is_lat_lb else dict(lat_scale_transform="softplus", min_lat_sigma=1e-4)
@@ -207,13 +208,16 @@ def gp_model_variant(name: str, is_elbo: bool, is_lat_lb: bool, is_sig_lb: bool,
                           n_z_samples_train=1 if is_elbo else draws, n_z_samples_test=draws,
                           min_sigma_pred=0.01 if is_sig_lb else 1e-4, **scale)
     arch = {} if headline_arch else dict(z_dim=16, is_global=False)
-    return ConvLNP(x_dim=1, y_dim=1, r_dim=r_dim, density_induced=64, cnn_kernel_size=19,
+    model = ConvLNP(x_dim=1, y_dim=1, r_dim=r_dim, density_induced=64, cnn_kernel_size=19,
                    cnn_norm="batch", cnn_n_conv_layers=2, cnn_norm_eps=cnn_norm_eps,
                    cnn_n_blocks=4, use_kernels=use_kernels, dtype=dtype,
                    **{"is_global": True, **arch}, is_q_zCct=is_elbo,
                    n_z_samples_train=1 if is_elbo else _NPML_DRAWS[name],
                    n_z_samples_test=_NPML_DRAWS[name],
                    min_sigma_pred=0.01 if is_sig_lb else 1e-4, **scale)
+    if not headline_arch:  # JAX's notebook decoder is a Dense with no dtype
+        model.decoder.module.dtype = None
+    return model
 
 
 def variant_name(name: str, is_elbo: bool, is_lat_lb: bool, is_sig_lb: bool) -> str:
@@ -422,7 +426,8 @@ def is_img_summary(summary: dict) -> bool:
 
 
 def img_model(name: str, dataset: str = "digits", y_dim: int = 1, use_kernels: bool = True,
-              remat: bool = False, n_conv_layers: int = 2) -> nn.Module:
+              remat: bool = False, n_conv_layers: int = 2,
+              dtype: Optional[torch.dtype] = None) -> nn.Module:
     """An image model as `reproduce_img.py`'s `build_model` makes it for
     `dataset`: the grid family at r_dim 128 with 2-D ResConvBlocks of
     `n_conv_layers` (two in that script; one in an earlier build), k = 9,
@@ -431,10 +436,11 @@ def img_model(name: str, dataset: str = "digits", y_dim: int = 1, use_kernels: b
     16 z draws in training and 32 in eval; `remat` each CNN block's
     recomputation in the backward pass. The point models are
     `gp_model_1d`'s at x_dim = 2 and `y_dim`, AttnCNP and AttnLNP with the
-    self-attention xy-encoder."""
+    self-attention xy-encoder. Every model computes in `dtype` (None:
+    float32), as `build_model(name, dtype=...)` builds it."""
     if name in SET_MODELS:
         extra = dict(is_self_attn=True) if name.startswith("Attn") else {}
-        return _set_model(name, R_DIM, None, use_kernels, x_dim=2, y_dim=y_dim, **extra)
+        return _set_model(name, R_DIM, dtype, use_kernels, x_dim=2, y_dim=y_dim, **extra)
     if name not in GRID_MODELS:
         raise ValueError(f"model={name!r}: one of {', '.join(IMG_MODELS)}")
     zsmms = dataset == "zsmms"
@@ -442,23 +448,24 @@ def img_model(name: str, dataset: str = "digits", y_dim: int = 1, use_kernels: b
                   cnn_kernel_size=9, cnn_norm="batch", cnn_n_conv_layers=n_conv_layers,
                   cnn_norm_eps=1e-2 if zsmms else 1e-3, conv_kernel_size=11,
                   conv_padding="CIRCULAR" if zsmms else "SAME", cnn_remat=remat,
-                  use_kernels=use_kernels)
+                  use_kernels=use_kernels, dtype=dtype)
     if name == "GridConvLNP":
         return GridConvLNP(is_global=True, n_z_samples_train=16, n_z_samples_test=32, **common)
     return GridConvCNP(**common)
 
 
 def img_model_from_summary(summary: dict, use_kernels: bool = True, remat: bool = False,
-                           n_conv_layers: int = 2) -> nn.Module:
+                           n_conv_layers: int = 2,
+                           dtype: Optional[torch.dtype] = None) -> nn.Module:
     """An image run's model (`img_model` of its `model` and `dataset`, y_dim
-    the summary's, 1 where an older summary has none). A GW or GP run's
-    summary is refused."""
+    the summary's, 1 where an older summary has none) in compute `dtype`.
+    A GW or GP run's summary is refused."""
     if not is_img_summary(summary):
         raise ValueError("not an image run's summary (no `dataset`): rebuild a GW run with "
                          "configs.gw_model_from_summary, a GP run with "
                          "configs.gp_model_from_summary")
     return img_model(summary["model"], summary["dataset"], summary.get("y_dim", 1),
-                     use_kernels, remat, n_conv_layers)
+                     use_kernels, remat, n_conv_layers, dtype)
 
 
 def img_criterion(name: str) -> BaseLossNPF:

@@ -11,7 +11,9 @@ context points get zero weight; a target with an empty context gets the
 zero representation. AttnLNP forces `encoded_path="both"`: its latent
 input is the masked mean of the per-point representations, and each
 target's representation is `merge_r_z` of its cross-attention and a z
-draw, so the decoder runs on n_z * B * n_trgt rows. Float32 only.
+draw, so the decoder runs on n_z * B * n_trgt rows. `dtype` reaches the
+self-attention xy-encoder and the attender too (the transformer block
+returns float32, as JAX's LayerNorm does).
 """
 
 from __future__ import annotations
@@ -35,12 +37,13 @@ class AttnCNP(CNP):
         self.self_attention_kwargs = self_attention_kwargs or {}
         super().__init__(*args, **kwargs)
         self.attender = get_attender(attention, self.x_transf_dim, self.r_dim, self.r_dim,
-                                     **(attention_kwargs or {}))
+                                     dtype=self.dtype, **(attention_kwargs or {}))
 
     def _make_xy_encoder(self, hidden_size):
         if not self.is_self_attn:
             return super()._make_xy_encoder(hidden_size)
-        attn = SelfAttention(self.x_transf_dim, out_dim=self.r_dim, **self.self_attention_kwargs)
+        attn = SelfAttention(self.x_transf_dim, out_dim=self.r_dim, dtype=self.dtype,
+                             **self.self_attention_kwargs)
         return MergeFlatInputs(attn, self.x_transf_dim, self.y_dim, is_sum_merge=True)
 
     def encode_globally(self, x_c, y_c, mask_cntxt, cond_emb=None):

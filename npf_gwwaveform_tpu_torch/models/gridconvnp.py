@@ -13,8 +13,11 @@ the decoder discards x: the MLP chain (K2 forward and K3 backward with
 `use_kernels`) on every pixel, B * H * W rows. `conv_padding` "CIRCULAR"
 wraps the grid in the AbsConv and in every CNN convolution (full
 translation equivariance, the zsmms configuration). `cnn_remat` recomputes
-each CNN block in the backward pass. Float32 only: image bf16 is a later
-ROADMAP item.
+each CNN block in the backward pass. `dtype` (bfloat16, or None for
+float32) is the compute dtype of the `resizer`, the grid CNNs, the latent
+path's Dense layers and the decoders, as in JAX; the AbsConv computes in
+its input's dtype (float32: the grid's values), and so do the density
+floor and the division, as in JAX.
 
 `GridConvLNP` adds ConvLNP's latent path: q(z|C) per grid point from the
 grid CNN's output ("latent"; with `is_global` the second half of z's
@@ -51,21 +54,19 @@ class GridConvCNP(NeuralProcessFamily):
                  conv_kernel_size: int = 11, conv_padding: str = "SAME", n_spatial: int = 2,
                  cnn_remat: bool = False, min_sigma_pred: float = 0.01, use_kernels: bool = True,
                  dtype: Optional[torch.dtype] = None, **latent):
-        if dtype is not None:
-            raise NotImplementedError("the grid family computes in float32 only (image bf16 is "
-                                      "a ROADMAP queue 1 item)")
-        super().__init__(x_dim, y_dim, r_dim, min_sigma_pred, 0, use_kernels, None, **latent)
+        super().__init__(x_dim, y_dim, r_dim, min_sigma_pred, 0, use_kernels, dtype, **latent)
         self.n_spatial = n_spatial
         self._cnn_args = (cnn_n_blocks, cnn_kernel_size, cnn_norm, cnn_n_conv_layers,
                           cnn_norm_eps, n_spatial, conv_padding, cnn_remat)
         self.conv = AbsConv(y_dim, conv_kernel_size, conv_padding, n_spatial)
-        self.resizer = Dense(2 * y_dim, r_dim, kernel_init=winit.switchable(winit.lecun_normal))
+        self.resizer = Dense(2 * y_dim, r_dim, dtype,
+                             kernel_init=winit.switchable(winit.lecun_normal))
         self.induced_to_induced = self._make_cnn()
         self.decoder = DiscardIthArg(self._make_decoder(), i=0)
 
     def _make_cnn(self) -> CNN:
         n_blocks, k, norm, n_conv, eps, n_spatial, padding, remat = self._cnn_args
-        return CNN(self.r_dim, n_blocks, k, norm, n_conv, eps, None, n_spatial=n_spatial,
+        return CNN(self.r_dim, n_blocks, k, norm, n_conv, eps, self.dtype, n_spatial=n_spatial,
                    padding=padding, remat=remat)
 
     def _make_decoder(self) -> nn.Module:
@@ -102,7 +103,7 @@ class GridConvLNP(GridConvCNP):
 
     def _make_decoder(self) -> nn.Module:
         """A linear decoder on R only: flax's default Dense."""
-        return Dense(self.r_dim, 2 * self.y_dim)
+        return Dense(self.r_dim, 2 * self.y_dim, self.dtype)
 
     def rep_to_lat_input(self, R, mask):
         """R itself ("latent"), or its mean over the last spatial axis

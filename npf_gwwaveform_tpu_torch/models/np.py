@@ -16,8 +16,13 @@ LNP adds the latent path: q(z|C) from the pooled R (the latent encoder),
 z drawn n_z times (`n_z_samples_train` / `n_z_samples_test`), and with
 `encoded_path` "latent" z (through `reshaper_z` where z_dim != r_dim) or
 with "both" `merge_r_z`(R, z) as the representation of every target: the
-decoder then runs on n_z * B * n_trgt rows. The set family computes in
-float32 only (GP bf16 is ROADMAP queue 1, item 6b).
+decoder then runs on n_z * B * n_trgt rows.
+
+`dtype` (bfloat16, or None for float32) is the compute dtype of the
+x-encoder, the xy-encoder, the latent encoder, `merge_r_z` and the decoder
+MLP, as JAX's modules take `dtype`; the `resizer` MLPs of the sum-merges
+have none in JAX and compute in float32 (the dtype a bf16 input and their
+float32 parameters promote to). The latent noise is drawn in float32.
 """
 
 from __future__ import annotations
@@ -34,34 +39,28 @@ from .base import NeuralProcessFamily
 __all__ = ["CNP", "LNP"]
 
 
-def _float32_only(dtype: Optional[torch.dtype]) -> None:
-    if dtype is not None:
-        raise NotImplementedError("the set and attention family computes in float32 only "
-                                  "(GP bf16: ROADMAP queue 1, item 6b)")
-
-
 class CNP(NeuralProcessFamily):
     def __init__(self, x_dim: int = 1, y_dim: int = 1, r_dim: int = 128,
                  x_transf_dim: Optional[int] = None, xy_hidden_size: Optional[int] = None,
                  min_sigma_pred: float = 0.01, use_kernels: bool = True,
                  dtype: Optional[torch.dtype] = None, **latent):
-        _float32_only(dtype)
-        super().__init__(x_dim, y_dim, r_dim, min_sigma_pred, 0, use_kernels, None, **latent)
+        super().__init__(x_dim, y_dim, r_dim, min_sigma_pred, 0, use_kernels, dtype, **latent)
         self.x_transf_dim = r_dim if x_transf_dim is None else x_transf_dim
-        self.x_encoder = MLP(x_dim, self.x_transf_dim, n_hidden_layers=1, hidden_size=r_dim)
+        self.x_encoder = MLP(x_dim, self.x_transf_dim, n_hidden_layers=1, hidden_size=r_dim,
+                             dtype=dtype)
         self.decoder = MergeFlatInputs(self._sub_decoder(2 * y_dim), self.x_transf_dim, r_dim,
                                        is_sum_merge=True)
         self.xy_encoder = self._make_xy_encoder(xy_hidden_size)
 
     def _sub_decoder(self, n_out: int) -> MLP:
         return MLP(self.x_transf_dim, n_out, n_hidden_layers=4, hidden_size=self.r_dim,
-                   fused=self.use_kernels)
+                   fused=self.use_kernels, dtype=self.dtype)
 
     def _make_xy_encoder(self, hidden_size: Optional[int]) -> MergeFlatInputs:
         """The encoded x sum-merged with y into an MLP of two hidden layers."""
         mlp = MLP(self.x_transf_dim, self.r_dim, n_hidden_layers=2,
                   hidden_size=self.r_dim if hidden_size is None else hidden_size,
-                  is_force_hid_smaller=hidden_size is None)
+                  is_force_hid_smaller=hidden_size is None, dtype=self.dtype)
         return MergeFlatInputs(mlp, self.x_transf_dim, self.y_dim, is_sum_merge=True)
 
     def encode_globally(self, x_c, y_c, mask_cntxt, cond_emb=None):

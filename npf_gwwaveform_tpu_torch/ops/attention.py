@@ -16,6 +16,15 @@ gradients, as in JAX. `F.scaled_dot_product_attention` would give NaN on
 such a row, so none is used. Where the values' width is not `out_size`
 the result passes a linear `resizer` (xavier, switchable).
 
+`dtype` is the JAX attender's compute dtype: with bfloat16 every linear
+layer (`linear`, `weighter`, `resizer`, the multihead transforms and
+`post_processor`) is flax's `Dense(dtype=bfloat16)` (`dense`), the logits
+are cast to float32 for the masked softmax and the weights back to the
+values' dtype, as in JAX. The additive attender's tanh MLP and the
+transformer block's ReLU MLP and LayerNorms have no dtype in JAX: they
+compute in the dtype flax promotes their input to with their float32
+parameters, float32, and the transformer block returns float32.
+
 The modules carry flax's parameter names: `linear`, `mlp`, `weighter`,
 `resizer`, `key_transform`, `query_transform`, `value_transform`,
 `post_processor`, `multihead`, `layer_norm1`, `layer_norm2`. Their
@@ -35,7 +44,7 @@ from torch import nn
 
 from ..utils import init as winit
 from ..utils.helpers import masked_softmax
-from .mlp import MLP
+from .mlp import MLP, dense
 
 __all__ = ["LayerNorm", "DotAttender", "MultiplicativeAttender", "AdditiveAttender",
            "CosineAttender", "DistanceAttender", "MultiheadAttender", "TransformerAttender",
@@ -44,6 +53,13 @@ __all__ = ["LayerNorm", "DotAttender", "MultiplicativeAttender", "AdditiveAttend
 # the names `get_attender` takes
 ATTENDERS = ("multiplicative", "additive", "dot", "scaledot", "cosine", "manhattan", "euclidean",
              "weighted_dist", "multihead", "transformer")
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`jnp.einsum` of two operands in the dtype JAX promotes them to (a
+    bf16 query against float32 relative-position keys: float32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 def _linear(in_f: int, out_f: int, init, bias: bool = True) -> nn.Linear:
@@ -56,8 +72,9 @@ class _Attender(nn.Module):
     """Holds the linear layers of an attender with their init schemes
     (`kernel_init` on each) and the optional `resizer`."""
 
-    def __init__(self, value_size: int, out_size: int):
+    def __init__(self, value_size: int, out_size: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         if value_size != out_size:
             self.resizer = _linear(value_size, out_size, winit.switchable(winit.xavier_uniform))
 
@@ -78,7 +95,7 @@ class _Attender(nn.Module):
         else:
             attn = torch.where(mask, logits, torch.zeros_like(logits))
         ctx = torch.einsum("bqk,bkv->bqv", attn.to(values.dtype), values)
-        return self.resizer(ctx) if hasattr(self, "resizer") else ctx
+        return dense(self.resizer, ctx, self.dtype) if hasattr(self, "resizer") else ctx
 
 
 class DotAttender(_Attender):
@@ -86,15 +103,15 @@ class DotAttender(_Attender):
     its own keys."""
 
     def __init__(self, value_size: int, out_size: int, is_scale: bool = True,
-                 is_normalize: bool = True):
-        super().__init__(value_size, out_size)
+                 is_normalize: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__(value_size, out_size, dtype)
         self.is_scale, self.is_normalize = is_scale, is_normalize
 
     def forward(self, keys, queries, values, mask_keys=None):
         if keys.dim() == 4:
-            logits = torch.einsum("bqkd,bqd->bqk", keys, queries)
+            logits = _einsum("bqkd,bqd->bqk", keys, queries)
         else:
-            logits = torch.einsum("bkd,bqd->bqk", keys, queries)
+            logits = _einsum("bkd,bqd->bqk", keys, queries)
         if self.is_scale:
             logits = logits / math.sqrt(queries.shape[-1])
         return self._attend(logits, values, mask_keys, self.is_normalize)
@@ -103,15 +120,16 @@ class DotAttender(_Attender):
 class MultiplicativeAttender(_Attender):
     """Luong attention: keys against a bias-free linear map of the queries."""
 
-    def __init__(self, kq_size: int, value_size: int, out_size: int, is_normalize: bool = True):
-        super().__init__(value_size, out_size)
+    def __init__(self, kq_size: int, value_size: int, out_size: int, is_normalize: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(value_size, out_size, dtype)
         self.is_normalize = is_normalize
         self.linear = _linear(kq_size, kq_size, winit.switchable(winit.kaiming_uniform_relu),
                               bias=False)
         self.init_params()
 
     def forward(self, keys, queries, values, mask_keys=None):
-        logits = torch.einsum("bkd,bqd->bqk", keys, self.linear(queries))
+        logits = torch.einsum("bkd,bqd->bqk", keys, dense(self.linear, queries, self.dtype))
         return self._attend(logits, values, mask_keys, self.is_normalize)
 
 
@@ -119,8 +137,9 @@ class AdditiveAttender(_Attender):
     """Bahdanau attention: a tanh MLP (one hidden layer of kq_size) of each
     (key, query) pair's concatenation."""
 
-    def __init__(self, kq_size: int, value_size: int, out_size: int, is_normalize: bool = True):
-        super().__init__(value_size, out_size)
+    def __init__(self, kq_size: int, value_size: int, out_size: int, is_normalize: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(value_size, out_size, dtype)
         self.is_normalize = is_normalize
         self.mlp = MLP(2 * kq_size, 1, hidden_size=kq_size, activation="tanh")
         self.init_params()
@@ -136,8 +155,9 @@ class AdditiveAttender(_Attender):
 class CosineAttender(_Attender):
     """Cosine similarity of keys and queries (norms floored at 1e-8)."""
 
-    def __init__(self, value_size: int, out_size: int, is_normalize: bool = True):
-        super().__init__(value_size, out_size)
+    def __init__(self, value_size: int, out_size: int, is_normalize: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(value_size, out_size, dtype)
         self.is_normalize = is_normalize
 
     def forward(self, keys, queries, values, mask_keys=None):
@@ -152,8 +172,9 @@ class DistanceAttender(_Attender):
     pass a linear `weighter`."""
 
     def __init__(self, kq_size: int, value_size: int, out_size: int, p: float = 1.0,
-                 is_weight: bool = False, is_normalize: bool = True):
-        super().__init__(value_size, out_size)
+                 is_weight: bool = False, is_normalize: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(value_size, out_size, dtype)
         self.p, self.is_weight, self.is_normalize = p, is_weight, is_normalize
         if is_weight:
             self.weighter = _linear(kq_size, kq_size,
@@ -163,7 +184,7 @@ class DistanceAttender(_Attender):
     def forward(self, keys, queries, values, mask_keys=None):
         diff = keys[:, None, :, :] - queries[:, :, None, :]
         if self.is_weight:
-            diff = self.weighter(diff)
+            diff = dense(self.weighter, diff, self.dtype)
         if self.p == 1:
             norm = diff.abs().sum(dim=-1)
         elif self.p == 2:
@@ -181,8 +202,10 @@ class MultiheadAttender(_Attender):
     `is_post_process` or where value_size != out_size."""
 
     def __init__(self, kq_size: int, value_size: int, out_size: int, n_heads: int = 8,
-                 is_post_process: bool = True, is_relative_pos: bool = False):
+                 is_post_process: bool = True, is_relative_pos: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         nn.Module.__init__(self)
+        self.dtype = dtype
         if kq_size % n_heads or value_size % n_heads:
             raise ValueError(f"kq_size {kq_size} and value_size {value_size} must divide into "
                              f"{n_heads} heads")
@@ -202,14 +225,15 @@ class MultiheadAttender(_Attender):
 
     def forward(self, keys, queries, values, mask_keys=None, rel_pos_enc=None):
         h = self.n_heads
-        k, q = self.key_transform(keys), self.query_transform(queries)
-        v = self.value_transform(values)
+        k = dense(self.key_transform, keys, self.dtype)
+        q = dense(self.query_transform, queries, self.dtype)
+        v = dense(self.value_transform, values, self.dtype)
         B, K, Q = k.shape[0], k.shape[1], q.shape[1]
         q = q.reshape(B, Q, h, -1)
         v = v.reshape(B, K, h, -1)
         if self.is_relative_pos:
             k = (k[:, None, :, :] + rel_pos_enc).reshape(B, Q, K, h, -1)
-            logits = torch.einsum("bqkhd,bqhd->bhqk", k, q)
+            logits = _einsum("bqkhd,bqhd->bhqk", k, q)
         else:
             logits = torch.einsum("bkhd,bqhd->bhqk", k.reshape(B, K, h, -1), q)
         logits = logits / math.sqrt(self.kq_size // h)
@@ -219,14 +243,18 @@ class MultiheadAttender(_Attender):
             mask = mask_keys[:, None, None, :]
         attn = masked_softmax(logits.float(), mask.expand_as(logits), dim=-1, stop_max_grad=True)
         ctx = torch.einsum("bhqk,bkhd->bqhd", attn.to(v.dtype), v).reshape(B, Q, self.value_size)
-        return self.post_processor(ctx) if hasattr(self, "post_processor") else ctx
+        if hasattr(self, "post_processor"):
+            return dense(self.post_processor, ctx, self.dtype)
+        return ctx
 
 
 class LayerNorm(nn.Module):
     """flax `nn.LayerNorm()` over the last axis: epsilon 1e-6, the variance
     E[x^2] - E[x]^2 clamped at 0 (flax's fast variance), then in flax's
-    order (x - mean) * (rsqrt(var + eps) * scale) + bias. Its parameters
-    keep flax's names, `scale` and `bias`."""
+    order (x - mean) * (rsqrt(var + eps) * scale) + bias. It has no dtype,
+    as in JAX: a bf16 x is promoted to float32 with the parameters, and the
+    result is float32. Its parameters keep flax's names, `scale` and
+    `bias`."""
 
     def __init__(self, n_features: int, eps: float = 1e-6):
         super().__init__()
@@ -240,6 +268,7 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, self.scale.dtype))
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.clamp_min(x.square().mean(dim=-1, keepdim=True) - mean.square(), 0.0)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
@@ -250,15 +279,17 @@ class TransformerAttender(nn.Module):
     LayerNorm of it plus the queries, a ReLU MLP (one hidden layer of
     out_size), LayerNorm of the sum. Needs kq_size == out_size. As in JAX,
     its multihead attender takes no relative positions (`rel_pos_enc` is
-    passed on and ignored), so relative self-attention takes "multihead"."""
+    passed on and ignored), so relative self-attention takes "multihead".
+    `dtype` reaches the multihead attender only (module docstring)."""
 
-    def __init__(self, kq_size: int, value_size: int, out_size: int, n_heads: int = 8):
+    def __init__(self, kq_size: int, value_size: int, out_size: int, n_heads: int = 8,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if kq_size != out_size:
             raise ValueError(f"TransformerAttender needs kq_size == out_size ({kq_size}, "
                              f"{out_size})")
         self.multihead = MultiheadAttender(kq_size, value_size, out_size, n_heads,
-                                           is_post_process=False)
+                                           is_post_process=False, dtype=dtype)
         self.layer_norm1 = LayerNorm(out_size)
         self.mlp = MLP(out_size, out_size, hidden_size=out_size)
         self.layer_norm2 = LayerNorm(out_size)

@@ -33,13 +33,20 @@ from .kernels.mlp_chain import FusedReluMLPFn
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """`layer(x)` as flax's `nn.Dense(dtype=dtype)` computes it. None: the
-    float32 layer as it is. Otherwise x, the weight and the bias are cast to
-    `dtype`, the product is rounded to it and the bias added in it, two
-    roundings as in flax (`F.linear` with its bias would round once)."""
+    float32 layer as it is, on x promoted with its float32 parameters (a
+    bf16 x computes in float32, as flax promotes it). Otherwise x, the
+    weight and the bias are cast to `dtype`, the product is rounded to it
+    and the bias added in it, two roundings as in flax (`F.linear` with its
+    bias would round once)."""
     if dtype is None:
-        return layer(x)
+        return layer(_promoted(x, layer))
     y = F.linear(x.to(dtype), layer.weight.to(dtype))
     return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def _promoted(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """x in the dtype flax promotes it to with the layer's parameters."""
+    return x.to(torch.promote_types(x.dtype, layer.weight.dtype))
 
 
 class Dense(nn.Linear):
@@ -59,7 +66,7 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is None:
-            return super().forward(x)
+            return super().forward(_promoted(x, self))
         return dense(self, x, self.dtype)
 
 

@@ -7,7 +7,8 @@ set onto itself, with optional positional encodings (`positional`
 of each attender, which then has no query bias: "multihead" only, as in
 JAX), then a linear `resize` to
 `out_dim` (xavier, switchable). Mask-aware: a padded point is attended by
-no point."""
+no point. `dtype` is JAX's: every attender's and `resize`'s compute
+dtype (the positional encodings stay float32, as in JAX)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from torch import nn
 
 from ..utils import init as winit
 from .attention import get_attender
+from .mlp import dense
 from .encoders import RelativeSinusoidalEncodings, SinusoidalEncodings
 
 __all__ = ["SelfAttention"]
@@ -25,8 +27,10 @@ __all__ = ["SelfAttention"]
 
 class SelfAttention(nn.Module):
     def __init__(self, x_dim: int, out_dim: Optional[int] = None, n_attn_layers: int = 2,
-                 attention: str = "transformer", positional: Optional[str] = None):
+                 attention: str = "transformer", positional: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         if positional not in (None, "absolute", "relative"):
             raise ValueError(f"Unknown positional={positional}")
         self.positional = positional
@@ -38,7 +42,8 @@ class SelfAttention(nn.Module):
             kwargs["is_relative_pos"] = True
         self.n_attn_layers = n_attn_layers
         for i in range(n_attn_layers):
-            self.add_module(f"attn_{i}", get_attender(attention, x_dim, x_dim, x_dim, **kwargs))
+            self.add_module(f"attn_{i}", get_attender(attention, x_dim, x_dim, x_dim,
+                                                               dtype=dtype, **kwargs))
         if out_dim is not None:
             self.resize = nn.Linear(x_dim, out_dim)
             self.init_params()
@@ -59,4 +64,4 @@ class SelfAttention(nn.Module):
         out = x
         for i in range(self.n_attn_layers):
             out = getattr(self, f"attn_{i}")(out, out, out, mask_keys=mask, **extra)
-        return self.resize(out) if hasattr(self, "resize") else out
+        return dense(self.resize, out, self.dtype) if hasattr(self, "resize") else out

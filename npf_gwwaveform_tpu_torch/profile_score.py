@@ -19,7 +19,7 @@ and how many replays pay for the capture (`score.GRAPH_MIN_REPLAYS`). Then
 one JSON line with both. `--bf16` scores in bfloat16 compute. A GP run
 (its summary has a `kernel`) scores one batch of 256 fresh functions of its
 first kernel (`score_gp.score_batch`, the sampling inside the batch and its
-graph), float32 only. Writes nothing.
+graph), in either dtype. Writes nothing.
 """
 
 from __future__ import annotations
@@ -56,9 +56,7 @@ def main(argv=None) -> dict:
         summary = json.load(f)
     g = torch.Generator(device="cuda")
     if is_gp_summary(summary):
-        if dtype is not None:
-            raise SystemExit("profile_score: no GP bf16 (ROADMAP queue 1, item 6b)")
-        model = score_gp.load_model(args.run_dir, "cuda")
+        model = score_gp.load_model(args.run_dir, "cuda", dtype=dtype)
         sampler, splitter = score_gp.samplers(summary["kernel"])[1][0], score_gp.eval_splitter()
         theta = None  # the batch graph takes no input: it samples its functions
 

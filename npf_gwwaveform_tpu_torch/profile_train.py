@@ -25,7 +25,7 @@ also how many kernels one replay launched and the hand kernels among them.
 Then one JSON line with both. `--bf16` trains in bfloat16 compute. A GP
 run's `--run-dir` (its summary has a `kernel`) profiles its `train_gp`
 configuration: `--batch` fresh functions of its kernel a step, sampled
-inside the step, float32 only. Writes nothing.
+inside the step, in either dtype. Writes nothing.
 """
 
 from __future__ import annotations
@@ -65,11 +65,9 @@ def main(argv=None) -> dict:
         with open(os.path.join(args.run_dir, "summary.json")) as f:
             record = json.load(f)
     if is_gp_summary(record):
-        if dtype is not None:
-            raise SystemExit(f"profile_train: no GP bf16 ({train_gp.GP_BF16_ITEM})")
         summary = {k: record[k] for k in ("model", "kernel", "epochs", "norm_eps", "init",
                                           "ablation_arch") if k in record}
-        trainer = train_gp.build_trainer(summary, 100, 1562, "cuda")
+        trainer = train_gp.build_trainer(summary, 100, 1562, "cuda", dtype=dtype)
         sampler = score_gp.samplers(summary["kernel"])[0]
 
         def sample(g):

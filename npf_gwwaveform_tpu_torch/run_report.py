@@ -1,7 +1,8 @@
 """Read what a run directory records: the quality bands a rescoring of the
 run must land in, and a run's training history beside another's.
 
-    python -m npf_gwwaveform_tpu_torch.run_report bands [--results results/] [--set | --img]
+    python -m npf_gwwaveform_tpu_torch.run_report bands [--results results/] [--set | --img | --gp]
+        [--bf16]
     python -m npf_gwwaveform_tpu_torch.run_report history --run RUN_DIR --ref RUN_DIR
 
 `bands` prints a markdown table of every GW ConvCNP run under `--results`
@@ -25,6 +26,17 @@ the 21 image runs (`img_runs`: per-image log-likelihoods, 160, 256 or
 grid run without BatchNorm statistics (no `extra_vars.msgpack`,
 `img_rescorable`) is marked as not rescored.
 
+With `--bf16` (and `--gp` or `--img`) it prints instead the bf16 bars of
+the GP bar runs (`gp_bf16_bar_runs`) or the image bar runs
+(`img_bf16_bar_runs`) from `tests/jax_bf16_family_gaps.json`: the JAX
+package's float32 band (`f32_bands`, the port's float32 rescoring's bar),
+JAX's own bf16-float32 mean-LL gap with the fused MLP-chain decoder (what
+the port's kernel path computes) and with the Dense decoder (the plain
+path), each with its count, and the bar a port bf16 rescoring's gap is held
+to (`bf16_gap_bar`) before the port's own standard error joins it: the
+fused gap within the larger of `BF16_GAP_TOL` nats and `BF16_GAP_SES`
+standard errors of it.
+
 `history` prints, at steps 10,000, 50,000, 100,000, 150,000 and 200,000,
 the 50-step train loss that ends there and the mean over the 1,000 steps
 that end there, for both runs.
@@ -43,13 +55,33 @@ import numpy as np
 from .configs import GRID_MODELS, SET_MODELS
 
 __all__ = ["recorded_scores", "bands_of", "score_bands", "gp_band", "gp_runs", "gp_set_runs",
-           "IMG_DATASETS", "img_rescorable", "img_runs", "scored_runs", "history_at", "main"]
+           "IMG_DATASETS", "img_rescorable", "img_runs", "scored_runs", "history_at",
+           "GP_BF16_BARS", "IMG_BF16_BARS", "BF16_GAP_TOL", "BF16_GAP_SES", "gp_bf16_bar_runs",
+           "img_bf16_bar_runs", "bf16_gap_bar", "main"]
 
 
 # the image corpora with runs under results/
 IMG_DATASETS = ("digits", "rgb_digits", "rgb_digits128", "zsmms")
 N_BOOT, N_RESAMPLE, QUANTILE, WIDEN, BOOT_SEED = 10_000, 1024, 0.99, 0.5, 0
 HISTORY_STEPS, HISTORY_WINDOW = (10_000, 50_000, 100_000, 150_000, 200_000), 1000
+# the runs scored in bf16 against the JAX package's own bf16 gap: each GP
+# family's RBF and Matern run_0 and the ELBO ConvLNP ablation run (three K1
+# launches), and the image families' digits runs, a circular zsmms grid run
+# and the XL
+GP_BF16_BARS = tuple(os.path.join(k, m, "run_0") for k in ("RBF_Kernel", "Matern_Kernel")
+                     for m in ("ConvCNP", "ConvLNP", "CNP", "LNP", "AttnCNP", "AttnLNP")) + (
+    os.path.join("RBF_Kernel", "ConvLNP_ELBOTrue_LatLBFalse_SigLBFalse", "run_0"),)
+IMG_BF16_BARS = tuple(os.path.join("digits", m, "run_0") for m in (
+    "GridConvCNP", "GridConvLNP", "CNP", "LNP", "AttnCNP", "AttnLNP")) + (
+    os.path.join("zsmms", "GridConvCNP", "run_1"),
+    os.path.join("rgb_digits128", "GridConvCNPXL", "run_0"))
+# a bf16 rescoring's bf16-float32 mean-LL gap must lie within the larger of
+# 0.3 nats and 3 standard errors of its difference from the JAX package's
+# own gap
+BF16_GAP_TOL, BF16_GAP_SES = 0.3, 3.0
+# the JAX package's bf16 gaps and float32 bands (tests/jax_bf16_family_gaps.py)
+GAPS_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests",
+                         "jax_bf16_family_gaps.json")
 
 
 def recorded_scores(run_dir: str) -> tuple:
@@ -124,6 +156,48 @@ def img_runs(results: str = "results", scored: bool = False) -> list:
     return [r for r in runs if img_rescorable(r)] if scored else runs
 
 
+def gp_bf16_bar_runs(results: str = "results") -> list:
+    """The GP bar runs' directories (`GP_BF16_BARS`)."""
+    return [os.path.join(results, r) for r in GP_BF16_BARS]
+
+
+def img_bf16_bar_runs(results: str = "results") -> list:
+    """The image bar runs' directories (`IMG_BF16_BARS`)."""
+    return [os.path.join(results, r) for r in IMG_BF16_BARS]
+
+
+def bf16_gap_bar(gap: dict, port_se: float = 0.0) -> tuple:
+    """(centre, half-width) of the bar on a port bf16 rescoring's mean-LL
+    gap, from a run's `bf16_gap` entry of tests/jax_bf16_family_gaps.json:
+    JAX's fused-decoder gap, within the larger of BF16_GAP_TOL and
+    BF16_GAP_SES standard errors of the difference of the two gaps: JAX's
+    (its per-function differences' sd over the square root of its count)
+    and the port's own, `port_se`, since the port scores other draws."""
+    fused = gap["fused"]
+    se = float(np.hypot(fused["d_ll_std"] / np.sqrt(gap["n"]), port_se))
+    return fused["d_mean_ll"], max(BF16_GAP_TOL, BF16_GAP_SES * se)
+
+
+def _bf16_table(runs: list, results: str, gaps: dict) -> None:
+    """A markdown table of bar runs: JAX's float32 band, its fused and Dense
+    bf16 gaps with their count, and `bf16_gap_bar`."""
+    print("| Bar run | JAX f32 band | n | JAX fused gap | JAX Dense gap | Port gap bar |")
+    print("| --- | --- | --- | --- | --- | --- |")
+    for run_dir in runs:
+        name = os.path.relpath(run_dir, results)
+        entry = gaps.get(name, {})
+        band = entry.get("f32_bands", {}).get("mean_ll")
+        band = "n/a" if band is None else f"[{band[0]:.2f}, {band[1]:.2f}]"
+        gap = entry.get("bf16_gap")
+        if gap is None:
+            print(f"| `{name}` | {band} | not taken | | | |")
+            continue
+        c, h = bf16_gap_bar(gap)
+        f, d = gap["fused"], gap["dense"]
+        print(f"| `{name}` | {band} | {gap['n']} | {f['d_mean_ll']:+.3f} (sd {f['d_ll_std']:.3f}) "
+              f"| {d['d_mean_ll']:+.3f} (sd {d['d_ll_std']:.3f}) | [{c - h:+.3f}, {c + h:+.3f}] |")
+
+
 def scored_runs(results: str = "results", model: str = "ConvCNP") -> list:
     """The GW run directories of `model` ("ConvCNP": time-domain and
     frequency-domain; "ConvLNP": the four latent runs) under `results` that
@@ -169,10 +243,23 @@ def main(argv=None) -> None:
     kind.add_argument("--set", action="store_true",
                       help="the set and attention family's GP runs instead")
     kind.add_argument("--img", action="store_true", help="the image runs instead")
+    kind.add_argument("--gp", action="store_true", help="with --bf16: the GP bar runs")
+    b.add_argument("--bf16", action="store_true",
+                   help="the bf16 gap bars of the GP (--gp) or image (--img) bar runs")
     h = sub.add_parser("history")
     h.add_argument("--run", required=True)
     h.add_argument("--ref", required=True)
     args = ap.parse_args(argv)
+    if args.cmd == "bands" and args.bf16:
+        if not (args.gp or args.img):
+            ap.error("--bf16 takes --gp or --img")
+        with open(GAPS_JSON) as f:
+            gaps = json.load(f)
+        runs = (gp_bf16_bar_runs if args.gp else img_bf16_bar_runs)(args.results)
+        _bf16_table(runs, args.results, gaps)
+        return
+    if args.cmd == "bands" and args.gp:
+        ap.error("--gp takes --bf16 (the conv-family GP runs' bands print by default)")
     if args.cmd == "bands" and args.img:
         _gp_table(img_runs(args.results), args.results, "Image run", "Images")
         return

@@ -2,7 +2,7 @@
 the eval protocol of `experiments/reproduce_gp.py`.
 
     python -m npf_gwwaveform_tpu_torch.score_gp --run-dir DIR [--n-test 10000]
-        [--seed 123] [--device cuda] [--out DIR]
+        [--seed 123] [--device cuda] [--out DIR] [--bf16]
 
 Each of the run's kernels (one, or RBF, Periodic and Noisy Matern for
 `All_Kernels`, their rows concatenated) draws `n_test // 256` batches of 256
@@ -21,7 +21,11 @@ the conv family (K1, and K2 for ConvCNP), and the set and attention family
 key is made from; Philox cannot replay that threefry stream, so the draws
 are the port's own). On CUDA, where enough batches follow to pay for its
 capture, a kernel's first batch runs eagerly and every later one is a replay
-of one CUDA graph that holds all of it, the sampling included.
+of one CUDA graph that holds all of it, the sampling included. `--bf16`
+scores in bfloat16 compute (the run's float32 parameters, every module in
+bf16 as `reproduce_gp.py --bf16` builds it, the log-likelihoods float32):
+a run directory records no dtype, so a run trained in bf16 is rescored
+with `--bf16`.
 
 It prints one JSON line. With `--out` it also writes `eval.csv` (one
 log-likelihood per function) and the run's summary with the new scores
@@ -193,13 +197,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, metavar="DIR",
                     help="write eval.csv and summary.json here (not the run, not results/)")
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = ap.parse_args(argv)
     try:
         check_out_dir(args.out, args.run_dir)
     except ValueError as e:
         ap.error(str(e))
     set_numerics()
-    res = score_run(args.run_dir, args.n_test, args.device, args.seed)
+    res = score_run(args.run_dir, args.n_test, args.device, args.seed,
+                    dtype=torch.bfloat16 if args.bf16 else None)
     if args.out is not None:
         with open(os.path.join(args.run_dir, "summary.json")) as f:
             summary = json.load(f)

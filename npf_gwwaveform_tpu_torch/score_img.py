@@ -3,7 +3,7 @@
 `experiments/zsmms_diag.py`.
 
     python -m npf_gwwaveform_tpu_torch.score_img --run-dir DIR [--n-test N]
-        [--seed 123] [--device cuda] [--out DIR] [--diag]
+        [--seed 123] [--device cuda] [--out DIR] [--diag] [--bf16]
 
 The run's test images (`n_test // 32` batches of 32; all of them by
 default: 160 for `digits` and `rgb_digits`, 256 for `rgb_digits128`, 1,024
@@ -29,6 +29,11 @@ batch's statistics, a latent model at its eval draws, the running
 statistics left as they were) and `test_canvas_adapted` (the running
 statistics re-estimated on the test images first,
 `training.adapt.adapt_batch_stats`, 50 passes from a generator seeded 7).
+
+`--bf16` (with `--diag` too) scores in bfloat16 compute: the run's float32
+parameters and statistics, every module in bf16 as
+`reproduce_img.build_model(name, dtype=jnp.bfloat16)` builds it, the
+log-likelihoods float32. A run directory records no dtype.
 
 It prints one JSON line. With `--out` it also writes `eval.csv` and the
 run's summary with the new scores into that directory (`score_gp`'s
@@ -80,14 +85,16 @@ def n_conv_layers(params: dict) -> int:
     return 2 if "conv1" in block or not block else 1
 
 
-def load_model(run_dir: str, device="cuda", use_kernels: bool = True) -> torch.nn.Module:
-    """The image run's model (`configs.img_model_from_summary`) with its
-    trained weights, loaded strictly, in eval mode on `device`. A run
+def load_model(run_dir: str, device="cuda", use_kernels: bool = True,
+               dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
+    """The image run's model (`configs.img_model_from_summary`, compute
+    `dtype`) with its trained weights, loaded strictly, in eval mode on
+    `device`. A run
     without `extra_vars.msgpack` keeps the initial BatchNorm statistics
     (mean 0, variance 1), as the JAX package's loader does."""
     params, extra = load_run_params(run_dir)
     model = img_model_from_summary(read_summary(run_dir), use_kernels,
-                                   n_conv_layers=n_conv_layers(params))
+                                   n_conv_layers=n_conv_layers(params), dtype=dtype)
     state = params_from_flax(params, extra)
     if not extra:
         buffers = dict(model.named_buffers())
@@ -149,12 +156,13 @@ def score_images(model, splitter, images: torch.Tensor, device="cuda", seed: int
 
 
 def score_run(run_dir: str, n_test: Optional[int] = None, device="cuda", seed: int = EVAL_SEED,
-              use_kernels: bool = True, graphed: Optional[bool] = None) -> dict:
+              use_kernels: bool = True, graphed: Optional[bool] = None,
+              dtype: Optional[torch.dtype] = None) -> dict:
     """Score an image run directory on its test images (the first
-    `n_test`, all by default) -> {run_dir, dataset, model, device, n,
-    mean_ll, std_ll, seconds, ll, graph}."""
+    `n_test`, all by default) in compute `dtype` -> {run_dir, dataset,
+    model, device, n, mean_ll, std_ll, seconds, ll, graph}."""
     summary = read_summary(run_dir)
-    model = load_model(run_dir, device, use_kernels)
+    model = load_model(run_dir, device, use_kernels, dtype)
     _, test = get_train_test_img_dataset(summary["dataset"])
     images = test.images if n_test is None else test.images[:n_test]
     res = score_images(model, splitter_for(summary["model"], test_upscale(test)), images,
@@ -167,16 +175,17 @@ def score_run(run_dir: str, n_test: Optional[int] = None, device="cuda", seed: i
 
 
 def diag(run_dir: str, device="cuda", seed: int = EVAL_SEED, n_test: Optional[int] = None,
-         graphed: Optional[bool] = None, adapt_passes: int = ADAPT_PASSES) -> dict:
+         graphed: Optional[bool] = None, adapt_passes: int = ADAPT_PASSES,
+         dtype: Optional[torch.dtype] = None) -> dict:
     """`zsmms_diag.py`'s four mean LLs of a zsmms grid run (module
     docstring) on the first `n_test` images of each canvas (1,024), each
     from a generator seeded `seed`; the adaptation takes `adapt_passes`
-    passes over all the test images."""
+    passes over all the test images; the model computes in `dtype`."""
     summary = read_summary(run_dir)
     if summary["dataset"] != "zsmms" or summary["model"] not in GRID_MODELS:
         raise ValueError(f"--diag diagnoses a zsmms grid run, not {summary['model']} on "
                          f"{summary['dataset']}")
-    model = load_model(run_dir, device)
+    model = load_model(run_dir, device, dtype=dtype)
     train, test = get_train_test_img_dataset("zsmms")
     n = 1024 if n_test is None else n_test
     splitter = splitter_for(summary["model"])
@@ -207,21 +216,23 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default=None, metavar="DIR",
                     help="write eval.csv and summary.json here (not the run, not results/)")
     ap.add_argument("--diag", action="store_true", help="zsmms_diag.py's four rows")
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = ap.parse_args(argv)
+    dtype = torch.bfloat16 if args.bf16 else None
     try:
         check_out_dir(args.out, args.run_dir)
     except ValueError as e:
         ap.error(str(e))
     set_numerics()
     if args.diag:
-        line = diag(args.run_dir, args.device, args.seed, args.n_test)
+        line = diag(args.run_dir, args.device, args.seed, args.n_test, dtype=dtype)
         if args.out is not None:
             os.makedirs(args.out, exist_ok=True)
             with open(os.path.join(args.out, "zsmms_diag.json"), "w") as f:
                 json.dump(line, f, indent=2)
         print(json.dumps(line))
         return line
-    res = score_run(args.run_dir, args.n_test, args.device, args.seed)
+    res = score_run(args.run_dir, args.n_test, args.device, args.seed, dtype=dtype)
     if args.out is not None:
         write_scores(args.out, read_summary(args.run_dir), res["ll"],
                      rescored_from=args.run_dir, rescored_device=res["device"])

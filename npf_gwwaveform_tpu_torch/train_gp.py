@@ -1,5 +1,5 @@
 """Train a GP model and score it: the port's counterpart of
-`experiments/reproduce_gp.py`, in float32.
+`experiments/reproduce_gp.py`, in float32 or (`--bf16`) bfloat16 compute.
 
     python -m npf_gwwaveform_tpu_torch.train_gp
         [--model CNP|LNP|AttnCNP|AttnLNP|ConvCNP|ConvLNP]
@@ -7,7 +7,7 @@
         [--n-test 10000] [--seed 123] [--decay-lr 10] [--per-super 80]
         [--init intended|realized] [--norm-eps 1e-3] [--ablation ELBO{T|F}_LatLB{T|F}_SigLB{T|F}]
         [--ablation-arch notebook|headline] [--loss default|sumo] [--run 0]
-        [--resume-from RUN_DIR] [--lr 1e-3] [--out runs_torch/] [--device cuda]
+        [--resume-from RUN_DIR] [--lr 1e-3] [--out runs_torch/] [--device cuda] [--bf16]
 
 The flags have `reproduce_gp.py`'s names, defaults and meanings (`--model`
 CNP by default). The model is `configs.gp_model_1d`'s (`--model`), an
@@ -40,8 +40,12 @@ JSON line, with one field `reproduce_gp.py` lacks:
 `mean_test_ll_best_check_stats`, the eval's mean LL with the BatchNorm
 statistics of the best check in place of the final ones. `--resume-from
 RUN_DIR` warm-starts from a run directory's parameters (its own output
-directory is refused). `--bf16` is refused: GP training in bf16 is ROADMAP
-queue 1, item 6b.
+directory is refused). `--bf16` trains, checks and scores in bfloat16
+compute, as `reproduce_gp.py --bf16` builds every model: every module in
+bf16, the parameters, Adam's moments, the BatchNorm statistics and the
+losses float32; the step is graphed as the float32 one is. The run
+directory and its summary are a float32 run's (that script records no
+dtype), so `score_gp --bf16` rescores it.
 
 Unlike `reproduce_gp.py`, whose chunks are always 50 steps, a run of fewer
 than 50 steps trains exactly its steps (one chunk), so that the CPU can
@@ -75,7 +79,6 @@ from .utils.helpers import set_numerics
 
 CHUNK = 50  # steps a chunk, as reproduce_gp.py scans them
 N_VALID, VALID_SEED = 1024, 777
-GP_BF16_ITEM = "ROADMAP queue 1, item 6b (GP bf16)"
 
 __all__ = ["run_name", "train_summary", "build_trainer", "schedule", "valid_loss", "copy_into",
            "train", "write_run", "output_dir", "run", "parser", "main"]
@@ -135,15 +138,17 @@ def schedule(epochs: int, fns_per_epoch: int, batch: int, per_super: int) -> dic
 
 
 def build_trainer(summary: dict, epochs: int, steps_per_epoch: int, device, seed: int = 123,
-                  lr: float = 1e-3, decay_lr: float = 10.0, use_kernels: bool = True) -> Trainer:
-    """The run's model drawn from its init scheme (`summary["init"]`) with
-    a generator seeded `seed`, on `device`, its criterion, Adam with the
+                  lr: float = 1e-3, decay_lr: float = 10.0, use_kernels: bool = True,
+                  dtype: Optional[torch.dtype] = None) -> Trainer:
+    """The run's model in compute `dtype` (None: float32) drawn from its
+    init scheme (`summary["init"]`) with a generator seeded `seed`, on
+    `device`, its criterion, Adam with the
     staircase decay, the clip of 1.0 for ConvLNP, and the training splitter
     (one context count U{0..50} a batch); the trainer's generator seeded
     `seed` too."""
     device = torch.device(device)
     winit.set_realized_init(summary.get("init") == "realized")
-    model = gp_model_from_summary(summary, use_kernels=use_kernels)
+    model = gp_model_from_summary(summary, use_kernels=use_kernels, dtype=dtype)
     winit.init_module(model, torch.Generator().manual_seed(seed))
     model.to(device)
     optimizer = make_optimizer(model.parameters(), lr=lr, decay_lr=decay_lr, max_epochs=epochs,
@@ -234,15 +239,18 @@ def output_dir(summary: dict, out: str, run_index: int) -> str:
 def run(summary: dict, epochs: int = 100, fns_per_epoch: int = 50_000, batch: int = 32,
         n_test: int = 10_000, seed: int = 123, decay_lr: float = 10.0, per_super: int = 80,
         lr: float = 1e-3, device="cuda", out: str = "runs_torch/", run_index: int = 0,
-        resume_from: Optional[str] = None, verbose: bool = True) -> tuple:
-    """Train the configuration `summary` states (`train_summary`), restore
+        resume_from: Optional[str] = None, verbose: bool = True,
+        dtype: Optional[torch.dtype] = None) -> tuple:
+    """Train the configuration `summary` states (`train_summary`) in compute
+    `dtype` (None: float32), restore
     its best-valid parameters, score it (`score_gp.score_model`, from
     `score_gp.EVAL_SEED`) and write its run directory -> (run_dir, summary
     with the scores)."""
     run_dir = output_dir(summary, out, run_index)
     refuse_own_dir(resume_from, run_dir)
     sched = schedule(epochs, fns_per_epoch, batch, per_super)
-    trainer = build_trainer(summary, epochs, sched["steps_per_epoch"], device, seed, lr, decay_lr)
+    trainer = build_trainer(summary, epochs, sched["steps_per_epoch"], device, seed, lr, decay_lr,
+                            dtype=dtype)
     if resume_from is not None:
         load_params_into(trainer.model, resume_from)
     if verbose:
@@ -275,7 +283,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--n-test", type=int, default=10_000)
     ap.add_argument("--out", default="runs_torch/")
-    ap.add_argument("--bf16", action="store_true", help=f"refused: {GP_BF16_ITEM}")
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     ap.add_argument("--seed", type=int, default=123)
     ap.add_argument("--decay-lr", type=float, default=10.0)
     ap.add_argument("--per-super", type=int, default=80)
@@ -296,8 +304,6 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.bf16:
-        raise NotImplementedError(f"train_gp --bf16 is not ported yet: {GP_BF16_ITEM}")
     try:
         summary = train_summary(args.model, args.kernel, args.epochs, args.norm_eps, args.init,
                                 args.ablation, args.ablation_arch, args.loss, args.lr,
@@ -308,7 +314,8 @@ def main(argv=None) -> dict:
     set_numerics()
     run_dir, summary = run(summary, args.epochs, args.fns_per_epoch, args.batch, args.n_test,
                            args.seed, args.decay_lr, args.per_super, args.lr, args.device,
-                           args.out, args.run, args.resume_from)
+                           args.out, args.run, args.resume_from,
+                           dtype=torch.bfloat16 if args.bf16 else None)
     print(json.dumps({"run_dir": run_dir, **summary}))
     return summary
 

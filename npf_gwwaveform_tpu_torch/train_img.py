@@ -1,11 +1,11 @@
 """Train an image model and score it: the port's counterpart of
-`experiments/reproduce_img.py`, in float32.
+`experiments/reproduce_img.py`, in float32 or (`--bf16`) bfloat16 compute.
 
     python -m npf_gwwaveform_tpu_torch.train_img
         [--model GridConvCNP|GridConvLNP|GridConvCNPXL|CNP|LNP|AttnCNP|AttnLNP]
         [--dataset digits|rgb_digits|rgb_digits128|zsmms] [--epochs 50] [--batch 32]
         [--run 0] [--out runs_torch/] [--remat] [--seed 0] [--steps N] [--n-test N]
-        [--device cuda]
+        [--device cuda] [--bf16]
 
 The flags have `reproduce_img.py`'s names, defaults and meanings. The model
 is `configs.img_model` for the dataset (circular padding and BatchNorm eps
@@ -31,7 +31,11 @@ seconds, mean train loss), `params.msgpack` and `extra_vars.msgpack`
 (flax's layout) and `summary.json` with that script's fields, plus
 `train_state.pt` (Adam's state, the update count and the generator,
 `training.checkpoint.save_train_state`); the summary is printed as one JSON
-line.
+line. `--bf16` trains and scores in bfloat16 compute, the model built as
+`reproduce_img.build_model(name, dtype=jnp.bfloat16)` builds it (that
+script has no flag for it): every module in bf16, the parameters, Adam's
+moments, the BatchNorm statistics and the losses float32. The run
+directory and summary are a float32 run's; `score_img --bf16` rescores it.
 """
 
 from __future__ import annotations
@@ -77,14 +81,15 @@ def schedule(n_train: int, epochs: int, batch: int, steps: Optional[int] = None)
 
 def build_trainer(model_name: str, dataset: str, y_dim: int, epochs: int, steps_per_epoch: int,
                   device, seed: int = 0, remat: bool = False,
-                  use_kernels: bool = True) -> Trainer:
-    """The model drawn with a generator seeded `seed` on `device`, its
+                  use_kernels: bool = True, dtype: Optional[torch.dtype] = None) -> Trainer:
+    """The model in compute `dtype` (None: float32) drawn with a generator
+    seeded `seed` on `device`, its
     criterion, Adam with the staircase decay and the clip of 1.0, the
     training splitter (one context count a batch), the trainer's generator
     seeded `seed` too."""
     device = torch.device(device)
     winit.set_realized_init(False)
-    model = img_model(model_name, dataset, y_dim, use_kernels, remat)
+    model = img_model(model_name, dataset, y_dim, use_kernels, remat, dtype=dtype)
     winit.init_module(model, torch.Generator().manual_seed(seed))
     model.to(device)
     optimizer = make_optimizer(model.parameters(), lr=1e-3, decay_lr=10.0, max_epochs=epochs,
@@ -143,14 +148,15 @@ def output_dir(out: str, dataset: str, model: str, run_index: int) -> str:
 def run(model_name: str = "GridConvCNP", dataset: str = "digits", epochs: int = 50,
         batch: int = 32, seed: int = 0, device="cuda", out: str = "runs_torch/",
         run_index: int = 0, remat: bool = False, steps: Optional[int] = None,
-        n_test: Optional[int] = None, verbose: bool = True) -> tuple:
-    """Train, score and write one image configuration -> (run_dir, summary
-    with the scores)."""
+        n_test: Optional[int] = None, verbose: bool = True,
+        dtype: Optional[torch.dtype] = None) -> tuple:
+    """Train, score and write one image configuration in compute `dtype`
+    -> (run_dir, summary with the scores)."""
     train_ds, test_ds = get_train_test_img_dataset(dataset)
     y_dim = int(train_ds.shape[-1])
     sched = schedule(len(train_ds), epochs, batch, steps)
     trainer = build_trainer(model_name, dataset, y_dim, epochs, sched["steps_per_epoch"], device,
-                            seed, remat)
+                            seed, remat, dtype=dtype)
     if verbose:
         print(f"{model_name} on {dataset}: {sched['steps']} steps ({sched['n_chunks']} chunks "
               f"x {sched['chunk']})", flush=True)
@@ -181,6 +187,7 @@ def parser() -> argparse.ArgumentParser:
                     help="train this many steps instead of the epochs' (chunks of up to 100)")
     ap.add_argument("--n-test", type=int, default=None, help="score the first N test images")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     return ap
 
 
@@ -194,7 +201,8 @@ def main(argv=None) -> dict:
         ap.error(str(e))
     set_numerics()
     run_dir, summary = run(args.model, args.dataset, args.epochs, args.batch, args.seed,
-                           args.device, args.out, args.run, args.remat, args.steps, args.n_test)
+                           args.device, args.out, args.run, args.remat, args.steps, args.n_test,
+                           dtype=torch.bfloat16 if args.bf16 else None)
     print(json.dumps({"run_dir": run_dir, **summary}))
     return summary
 

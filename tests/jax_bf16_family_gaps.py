@@ -80,6 +80,32 @@ package's eval splitter draws from batch i's `fold_in(PRNGKey(123), i)`
 seeded by the batch); `f32_bands` is `run_report.bands_of` at half the
 count. About 40 minutes on two threads for all 20.
 
+With `--gp-bf16` it takes the JAX package's own bf16-float32 gap of the GP
+bar runs (`run_report.gp_bf16_bar_runs`: RBF and Matern ConvCNP, ConvLNP,
+CNP, LNP, AttnCNP and AttnLNP run_0, and the ELBO ConvLNP ablation run),
+with `--img-bf16` that of the image bar runs (`run_report.img_bf16_bar_runs`:
+the six `digits` runs, `zsmms/GridConvCNP/run_1` and
+`rgb_digits128/GridConvCNPXL/run_0`): each run's JAX model three ways on the
+same inputs, float32, bf16 with the fused MLP-chain decoder
+(`fused_mlp=True`, the Pallas chain in interpret mode: the model the port's
+kernel path matches) and bf16 with the Dense decoder the scripts build (the
+port's plain path), as `reproduce_gp.py --bf16` and
+`reproduce_img.build_model(name, dtype=jnp.bfloat16)` build them, every
+forward JAX's own. The functions, images, context masks and z draws are
+JAX's eval draws as `--gp`, `--gp-set` and `--img` draw them (a GP chunk's
+z key is folded from the second half of its batch's split key, an image
+batch's from `fold_in(PRNGKey(123), i)`'s), the same for the three models.
+A GP run scores the first `--n-gp-bf16` functions of each kernel in chunks
+of `--latent-batch`, an image run the first `--n-img-bf16` test images in
+batches of at most 32 (`--n-img-bf16-slow` for GridConvLNP and the XL,
+whose XLA CPU convolutions are slow); `--banded` gives the conv-family GP
+models the banded-matmul depthwise lowering (`cnn_banded`: the same
+parameters and linear map; XLA's CPU depthwise convolutions are slow).
+Each run's entry gains `bf16_gap`: the count, the seconds, `banded`, the
+float32 mean LL and, for `fused` and `dense`, the bf16 mean LL, the mean
+and standard deviation of the per-function (per-image) bf16-minus-float32
+log-likelihood differences (`d_mean_ll`, `d_ll_std`).
+
 XLA's excess precision is turned off (`--xla_allow_excess_precision=false`)
 so that every bf16 op under jit rounds its result, as the ops read and as
 the port computes (tests/test_torch_bf16_slice.py).
@@ -311,6 +337,139 @@ def img_f32(run_dir):
             "f32_bands": {"mean_ll": [lo, hi]}}
 
 
+def jax_gp_model(summary, dtype=None, banded=False):
+    """A GP run's JAX model in compute `dtype`, as `reproduce_gp.py` builds
+    it (an ablation variant, SUMO's NPML variant or `gp_model_1d`), with the
+    banded depthwise lowering on the conv family's grid CNNs."""
+    from npf_gwwaveform_tpu.configs import gp_model_variant
+    from npf_gwwaveform_tpu_torch.configs import parse_variant
+
+    name, eps = summary["model"], summary.get("norm_eps", 1e-3)
+    if "_ELBO" in name:
+        base, flags = parse_variant(name)
+        model = gp_model_variant(base, flags["ELBO"], flags["LatLB"], flags["SigLB"], dtype=dtype,
+                                 cnn_norm_eps=eps,
+                                 headline_arch=summary.get("ablation_arch") == "headline")
+    elif name.endswith("_SUMO"):
+        base = name[: -len("_SUMO")]
+        model = gp_model_variant(base, False, True, True, dtype=dtype, cnn_norm_eps=eps)
+    else:
+        base = name
+        model = gp_model_1d(name, dtype=dtype, cnn_norm_eps=eps)
+    if banded and base.startswith("Conv"):
+        model = model.clone(CNNFactory=gp_model_1d(base, dtype=dtype, cnn_norm_eps=eps,
+                                                   cnn_banded=True).CNNFactory)
+    return model
+
+
+def _three_ways(models, variables, batches):
+    """Per-function log-likelihoods (NPML without importance weights) of
+    the (float32, bf16 fused, bf16 Dense) models on `batches` of (x_c, y_c,
+    x_t, y_t, mask_c, mask_t, latent key) -> three float64 arrays."""
+    from npf_gwwaveform_tpu.losses import npml_loss
+
+    lls = []
+    for model in models:
+        @jax.jit
+        def ll(v, xc, yc, xt, yt, mc, mt, key, model=model):
+            out = model.apply(v, xc, yc, xt, yt, mask_cntxt=mc, mask_trgt=mt, train=False,
+                              rngs={"latent": key})
+            return -npml_loss(out, yt, mt, use_iw=False)
+        lls.append(np.concatenate([np.asarray(ll(variables, *b), np.float64) for b in batches]))
+    return lls
+
+
+def _gap_entry(lls, batch, seconds, **extra):
+    ll32, fused, dense = lls
+    entry = {"n": int(ll32.shape[0]), "batch": batch, "seconds": seconds, **extra,
+             "f32": {"mean_ll": float(ll32.mean())}}
+    for name, ll in (("fused", fused), ("dense", dense)):
+        d = ll - ll32
+        entry[name] = {"mean_ll": float(ll.mean()), "d_mean_ll": float(d.mean()),
+                       "d_ll_std": float(d.std())}
+    return entry
+
+
+def gp_bf16(run_dir, n, chunk, banded):
+    """A GP bar run's JAX bf16-float32 gaps on JAX's eval draws, the first
+    `n` functions of each kernel (module docstring) -> its `bf16_gap`."""
+    import time
+
+    from npf_gwwaveform_tpu.data.gp import KERNEL_CONFIGS, GPSampler
+    from npf_gwwaveform_tpu_torch import score_gp
+
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    comps = score_gp.ALL_KERNELS if summary["kernel"] == "All_Kernels" else (summary["kernel"],)
+    variables = {"params": _restore(os.path.join(run_dir, "params.msgpack"))}
+    extra = os.path.join(run_dir, "extra_vars.msgpack")
+    if os.path.exists(extra):
+        variables.update(_restore(extra))
+    models = (jax_gp_model(summary, None, banded),
+              jax_gp_model(summary, jnp.bfloat16, banded).clone(fused_mlp=True),
+              jax_gp_model(summary, jnp.bfloat16, banded))
+    splitter = CntxtTrgtSplitter(contexts_getter=GetRandomIndcs(a=0.0, b=50, is_indep_n=True),
+                                 targets_getter=get_all_indcs)
+    k_data, k_split = jax.random.split(jax.random.PRNGKey(123))
+    batches = []
+    for c, name in enumerate(comps):
+        sampler = GPSampler(n_points=128, **KERNEL_CONFIGS[name])
+        kd = k_data if c == 0 else jax.random.fold_in(k_data, c)
+        ks = k_split if c == 0 else jax.random.fold_in(k_split, c)
+        for i in range(-(-n // 256)):
+            x, y = sampler.sample(jax.random.fold_in(kd, i), 256)
+            k_sp, k_z = jax.random.split(jax.random.fold_in(ks, i))
+            mask_c = splitter(k_sp, x, y)["mask_cntxt"]
+            mask_t = jnp.ones(mask_c.shape, bool)
+            for j in range(0, min(256, n - 256 * i), chunk):
+                s = slice(j, min(j + chunk, n - 256 * i))
+                batches.append((x[s], y[s], x[s], y[s], mask_c[s], mask_t[s],
+                                jax.random.fold_in(k_z, j)))
+    t0 = time.perf_counter()
+    lls = _three_ways(models, variables, batches)
+    return _gap_entry(lls, chunk, time.perf_counter() - t0, banded=bool(banded))
+
+
+def img_bf16(run_dir, n):
+    """An image bar run's JAX bf16-float32 gaps on JAX's eval draws, its
+    first `n` test images (module docstring) -> its `bf16_gap`."""
+    import time
+
+    from experiments.reproduce_img import POINT_MODELS, build_model
+    from npf_gwwaveform_tpu.data import get_train_test_img_dataset
+    from npf_gwwaveform_tpu.data.datasplit import (
+        GridCntxtTrgtSplitter, PointsFromGridSplitter, RandomMasker, no_masker,
+    )
+
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    variables = {"params": _restore(os.path.join(run_dir, "params.msgpack")),
+                 **_restore(os.path.join(run_dir, "extra_vars.msgpack"))}
+    kw = dict(y_dim=summary.get("y_dim", 1),
+              **(dict(padding="CIRCULAR", norm_eps=1e-2) if summary["dataset"] == "zsmms"
+                 else {}))
+    models = (build_model(summary["model"], **kw),
+              build_model(summary["model"], dtype=jnp.bfloat16, **kw).clone(fused_mlp=True),
+              build_model(summary["model"], dtype=jnp.bfloat16, **kw))
+    _, test = get_train_test_img_dataset(summary["dataset"])
+    masker = RandomMasker(a=0.0, b=0.3, is_indep_n=True)
+    splitter = (PointsFromGridSplitter(context_masker=masker,
+                                       upscale_factor=getattr(test, "test_upscale_factor", 1.0))
+                if summary["model"] in POINT_MODELS else
+                GridCntxtTrgtSplitter(context_masker=masker, target_masker=no_masker))
+    batches = []
+    for i in range(-(-n // 32)):
+        k_split, k_latent = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(123), i))
+        y = test.images[i * 32:(i + 1) * 32]
+        b = splitter(k_split, y, y)
+        m = min(32, n - 32 * i)
+        batches.append(tuple(b[k][:m] for k in ("X_cntxt", "Y_cntxt", "X_trgt", "Y_trgt",
+                                                 "mask_cntxt", "mask_trgt")) + (k_latent,))
+    t0 = time.perf_counter()
+    lls = _three_ways(models, variables, batches)
+    return _gap_entry(lls, min(32, n), time.perf_counter() - t0)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=2048)
@@ -327,11 +486,24 @@ def main() -> None:
     ap.add_argument("--n-gp-set", type=int, default=9984,
                     help="functions a set or attention GP run")
     ap.add_argument("--img", action="store_true", help="every scorable image run, float32")
+    ap.add_argument("--gp-bf16", action="store_true",
+                    help="JAX's bf16 gaps of the GP bar runs (fused and Dense decoder)")
+    ap.add_argument("--img-bf16", action="store_true",
+                    help="JAX's bf16 gaps of the image bar runs (fused and Dense decoder)")
+    ap.add_argument("--n-gp-bf16", type=int, default=256, help="functions a kernel")
+    ap.add_argument("--n-img-bf16", type=int, default=64, help="test images")
+    ap.add_argument("--n-img-bf16-slow", type=int, default=16,
+                    help="test images of GridConvLNP and GridConvCNPXL")
+    ap.add_argument("--banded", action="store_true",
+                    help="with --gp-bf16, the conv family's depthwise convs as banded matmuls")
     ap.add_argument("--shard", default=None, help="i/k: every k-th GP run from the i-th")
     ap.add_argument("--n-gp-cnp", type=int, default=9984,
                     help="functions a GP ConvCNP run (cheap on the CPU); a GP ConvLNP run "
                          "takes --n")
     args = ap.parse_args()
+    if args.gp_bf16 or args.img_bf16:
+        bf16_gaps(args)
+        return
     if args.gp or args.gp_set or args.img:
         from npf_gwwaveform_tpu_torch.run_report import gp_runs, gp_set_runs, img_runs
 
@@ -380,6 +552,36 @@ def main() -> None:
               f"{r['bf16']['mean_ll']:.3f}, gap {r['d_mean_ll']:+.4f} (sd {r['d_ll_std']:.3f}), "
               f"median mismatch gap {r['d_median_mismatch']:+.2e}", flush=True)
         with open(args.out, "w") as f:  # after every run: a long job keeps what it has
+            json.dump(dict(sorted(out.items())), f, indent=1)
+
+
+def bf16_gaps(args) -> None:
+    """`--gp-bf16` / `--img-bf16`: each bar run's `bf16_gap` into its entry
+    of `--out`, after every run."""
+    from npf_gwwaveform_tpu_torch.run_report import gp_bf16_bar_runs, img_bf16_bar_runs
+
+    runs = args.runs or (gp_bf16_bar_runs(RESULTS) if args.gp_bf16 else
+                         img_bf16_bar_runs(RESULTS))
+    if args.shard:
+        i, k = (int(v) for v in args.shard.split("/"))
+        runs = runs[i::k]
+    out = {}
+    if os.path.exists(args.out):
+        with open(args.out) as f:
+            out = json.load(f)
+    for run_dir in runs:
+        name = os.path.relpath(os.path.abspath(run_dir), RESULTS)
+        if args.gp_bf16:
+            gap_ = gp_bf16(run_dir, args.n_gp_bf16, args.latent_batch, args.banded)
+        else:
+            slow = any(m in name for m in ("GridConvLNP", "GridConvCNPXL"))
+            gap_ = img_bf16(run_dir, args.n_img_bf16_slow if slow else args.n_img_bf16)
+        out.setdefault(name, {})["bf16_gap"] = gap_
+        print(f"{name}: n {gap_['n']}, f32 {gap_['f32']['mean_ll']:.3f}, fused gap "
+              f"{gap_['fused']['d_mean_ll']:+.4f} (sd {gap_['fused']['d_ll_std']:.3f}), Dense gap "
+              f"{gap_['dense']['d_mean_ll']:+.4f} (sd {gap_['dense']['d_ll_std']:.3f}), "
+              f"{gap_['seconds']:.0f} s", flush=True)
+        with open(args.out, "w") as f:
             json.dump(dict(sorted(out.items())), f, indent=1)
 
 

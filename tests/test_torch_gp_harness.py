@@ -132,7 +132,7 @@ def test_sample_predictor():
 def test_train_gp_and_score_gp_on_the_cpu(tmp_path, capsys):
     """`train_gp --device cpu`, two steps of the GP ConvCNP (the JAX run
     layout and `reproduce_gp.py`'s summary fields), then `score_gp` on it
-    with `--out` (never the run directory); `--bf16` refused."""
+    with `--out` (never the run directory), and `score_gp --bf16` on it."""
     summary = train_gp.main(["--device", "cpu", "--model", "ConvCNP", "--epochs", "1",
                              "--fns-per-epoch", "64", "--n-test", "4", "--norm-eps", "1e-5",
                              "--init", "realized", "--out", str(tmp_path)])
@@ -154,8 +154,8 @@ def test_train_gp_and_score_gp_on_the_cpu(tmp_path, capsys):
     assert sorted(os.listdir(out_dir)) == ["eval.csv", "summary.json"]
     with pytest.raises(SystemExit):
         score_gp.main(["--device", "cpu", "--run-dir", run_dir, "--out", run_dir])
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        train_gp.main(["--device", "cpu", "--bf16"])
+    line16 = score_gp.main(["--device", "cpu", "--run-dir", run_dir, "--n-test", "4", "--bf16"])
+    assert line16["n"] == 4 and np.isfinite(line16["mean_ll"])
     with pytest.raises(SystemExit):
         train_gp.main(["--device", "cpu", "--ablation", "ELBOTrue_LatLBTrue_SigLBTrue"])
 

@@ -6,8 +6,10 @@ self-attention, CNP, LNP, AttnCNP, AttnLNP) import, `score_gp` scores an
 AttnLNP run and `train_gp` trains 2 steps of LNP; the image family's
 modules import with sklearn blocked too (the digits ship with the port),
 `score_img` scores a digits GridConvLNP run and `train_img` trains 2 steps
-of GridConvCNP. Also: chip_smoke.py fails, printing no result, where it
-cannot run."""
+of GridConvCNP; in bfloat16, `score_gp --bf16` scores a ConvLNP run,
+`score_img --bf16` an AttnCNP run, and `train_gp --bf16` and `train_img
+--bf16` train 2 steps. Also: chip_smoke.py fails, printing no result,
+where it cannot run."""
 
 import json
 import os
@@ -102,6 +104,30 @@ print(json.dumps({{"score": line, "steps": summary["steps"], "ll": summary["mean
 """
 
 
+_BF16_ISOLATED = f"""
+import sys
+for name in {_BLOCKED + ("sklearn",)!r}:
+    sys.modules[name] = None
+import json
+from npf_gwwaveform_tpu_torch import score_gp, score_img, train_gp, train_img
+gp = score_gp.main(["--run-dir", {os.path.join(REPO, "results", "RBF_Kernel", "ConvLNP",
+                                                "run_0")!r},
+                    "--n-test", "1", "--device", "cpu", "--bf16"])
+img = score_img.main(["--run-dir", {os.path.join(REPO, "results", "digits", "AttnCNP",
+                                                  "run_0")!r},
+                      "--n-test", "1", "--device", "cpu", "--bf16"])
+train_gp.N_VALID = 16
+s_gp = train_gp.main(["--device", "cpu", "--model", "CNP", "--epochs", "1",
+                      "--fns-per-epoch", "64", "--n-test", "2", "--out", sys.argv[1], "--bf16"])
+s_img = train_img.main(["--device", "cpu", "--steps", "2", "--n-test", "2", "--out",
+                        sys.argv[1], "--bf16"])
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and m.split(".")[0] in {_BLOCKED + ("sklearn",)!r}]
+assert not loaded, loaded
+print(json.dumps({{"gp": gp, "img": img, "lls": [s_gp["mean_test_ll"], s_img["mean_test_ll"]]}}))
+"""
+
+
 def _env():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("PYTHONSTARTUP", None)
@@ -157,3 +183,15 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_bf16_gp_and_image_families_run_without_jax(tmp_path):
+    """`score_gp --bf16` (a ConvLNP run: K1, the latent path), `score_img
+    --bf16` (the self-attention AttnCNP), `train_gp --bf16` and `train_img
+    --bf16`, none of the JAX package's modules importable."""
+    proc = subprocess.run([sys.executable, "-c", _BF16_ISOLATED, str(tmp_path)], cwd=REPO,
+                          env=_env(), capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["gp"]["n"] == 1 and res["img"]["n"] == 1
+    assert all(isinstance(v, float) for v in res["lls"])
