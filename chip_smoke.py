@@ -265,7 +265,32 @@ Phases, each announced with the seconds elapsed:
      of seed 0's trained model on the kernel path against the plain-kernel
      path (phase 11's check with `rounding_grads`' allowance), the rows of
      that step's chain launches, a traced replay's launches.
-Phases 17-32 run after phase 16's scoring and before phase 14's training
+ 33. the evaluation tools' kernels: K1 at `eval_extrapolation`'s shapes
+     with the RBF conv runs' length scales (256 functions of 256 points on
+     twice the range, contexts among the inner points, onto the 384-point
+     grid over (-3, 3); the grid onto the targets at B = 256 and, for
+     ConvLNP's 32 draws, 8,192) and at the context sweeps' new masks, K2
+     at the extrapolation decoders' rows with the RBF runs' weights (65,536;
+     AttnLNP's 524,288; LNP's 2,097,152), each at phases 3-4's bars, two
+     launches bit-identical, timed beside its bound and plain version;
+ 34. `eval_extrapolation` on the card: both kernels' six models (and the
+     RBF oracle) at 2,560 functions, eager, each held statistic
+     (`EXTRAP_HELD`: the means; the heavy-tailed rows' medians too; the
+     oracle's interpolation by its median) inside the band of the JAX
+     package's own values on its draws (`tests/jax_eval_bands.json`), the
+     record printed beside; each model's launches; one conv batch on the
+     plain-kernel path against the kernel path;
+ 35. `gw_eval_ctx` on the card: the nine context-sweep records in
+     `results/` at 1,024 waveforms a count, p50 and p90 at every count
+     inside the bands of the JAX package's own values on its draws, the
+     record and the other four fields printed beside; the launches;
+ 36. the tools on the card: `utils.profiling.trace` around one replay of
+     the flagship scoring batch's graph (its trace lists K1 and K2),
+     `StepTimer` over 20 synchronised replays against CUDA events,
+     `viz.gen_p_y_pred` on the flagship run and
+     `viz.get_posterior_samples_imgs` on `digits/GridConvCNP/run_0` against
+     their CPU results.
+Phases 17-36 run after phase 16's scoring and before phase 14's training
 loop. It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -275,6 +300,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import gc
+import glob
 import json
 import os
 import subprocess
@@ -289,12 +315,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from npf_gwwaveform_tpu_torch import _build
+from npf_gwwaveform_tpu_torch import eval_extrapolation as extrap
+from npf_gwwaveform_tpu_torch import gw_eval_ctx
 from npf_gwwaveform_tpu_torch import score as score_mod
-from npf_gwwaveform_tpu_torch import score_gp, score_img, train_gp, train_gw, train_img
+from npf_gwwaveform_tpu_torch import score_gp, score_img, train_gp, train_gw, train_img, viz
 from npf_gwwaveform_tpu_torch.configs import (
     SET_MODELS, gw_model_from_summary, gw_train_summary, train_config,
 )
-from npf_gwwaveform_tpu_torch.data.gp import sample_covariance_z
+from npf_gwwaveform_tpu_torch.data.gp import KERNEL_CONFIGS, GPSampler, sample_covariance_z
 from npf_gwwaveform_tpu_torch.data.images import get_train_test_img_dataset
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.kernel_measure import (
@@ -319,6 +347,7 @@ from npf_gwwaveform_tpu_torch.score import (
 )
 from npf_gwwaveform_tpu_torch.training.checkpoint import load_run_params, params_from_flax
 from npf_gwwaveform_tpu_torch.utils.cuda_graph import WARMUP_CALLS
+from npf_gwwaveform_tpu_torch.utils import profiling
 from npf_gwwaveform_tpu_torch.utils.helpers import linspace, set_numerics
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -763,6 +792,40 @@ GP16_TRAIN = tuple((n, s) for n, s in GP_TRAIN + SET_TRAIN
                    if n in ("gp cnp", "gp npml", "set cnp", "set lnp", "set attncnp",
                             "set attnlnp"))
 IMG16_TRAIN = tuple(t for t in IMG_TRAIN if t[0] in ("img gridconvcnp", "img cnp", "img lnp"))
+
+# phases 33-36, the evaluation tools: the JAX package's own per-function and
+# per-waveform values of `experiments/eval_extrapolation.py` and
+# `experiments/gw_eval_ctx.py` on their own draws, and their bands
+# (tests/jax_eval_bands.py: `run_report.bands_of`'s rule at half the count)
+EVAL_BANDS_JSON = os.path.join(ROOT, "tests", "jax_eval_bands.json")
+EXTRAP_KERNELS = ("RBF_Kernel", "Periodic_Kernel")
+EXTRAP_N = 2560  # the records' count: ten batches of 256 a model, eager
+EXTRAP_MODELS = extrap.MODELS[1:]
+# the launches of one extrapolation batch (K1, K2, K3, K2-bf16, K3-bf16):
+# the set family's decoder is the chain, ConvCNP's too with two SetConvs,
+# ConvLNP's decoder is linear
+EXTRAP_CALL = {"CNP": (0, 1, 0, 0, 0), "LNP": (0, 1, 0, 0, 0), "AttnCNP": (0, 1, 0, 0, 0),
+               "AttnLNP": (0, 1, 0, 0, 0), "ConvCNP": (2, 1, 0, 0, 0), "ConvLNP": (2, 0, 0, 0, 0)}
+# the statistics each row is held by: both means; the heavy-tailed
+# extrapolation rows (RBF AttnLNP's std 152,899 in the record, Periodic
+# CNP's 12,328) by their medians too; the oracle's interpolation mean is an
+# ill-conditioned float32 solve (the record's -2,002.70, std 24,177; JAX on
+# the CPU gives +251 on the same draws), so its median is held instead and
+# its mean printed; cuSOLVER rounds those solves otherwise again
+EXTRAP_HELD = {("RBF_Kernel", "oracle_gp"): (("interp", "median"), ("extrap", "mean")),
+               ("RBF_Kernel", "AttnLNP"): (("interp", "mean"), ("extrap", "mean"),
+                                           ("extrap", "median")),
+               ("Periodic_Kernel", "CNP"): (("interp", "mean"), ("extrap", "mean"),
+                                            ("extrap", "median"))}
+EXTRAP_HELD_DEFAULT = (("interp", "mean"), ("extrap", "mean"))
+# the run scored on the plain-kernel path as well (one batch), per function
+# within the CPU tests' bar (1e-4 of the LL plus 0.02 nats)
+EXTRAP_PLAIN = ("RBF_Kernel", "ConvCNP")
+SWEEP_N = 1024  # the records' count: four batches of 256 a count, eager
+SWEEP_CALL = (2, 1, 0, 0, 0)  # a GW ConvCNP scoring batch
+# StepTimer, a synchronize after each replay, against CUDA events around the
+# same number of replays
+TOOL_REPLAYS, TOOL_TIMER_RTOL = 20, 0.10
 
 
 def img_call(model: str) -> tuple:
@@ -2815,6 +2878,316 @@ def run_bf16_family_phases(gen, smi) -> dict:
     return dict(kernels=kernels, score_paths=score_paths, train=train)
 
 
+def eval_bands() -> dict:
+    """The JAX package's evaluation bands (`tests/jax_eval_bands.py`)."""
+    with open(EVAL_BANDS_JSON) as f:
+        return json.load(f)
+
+
+def check_eval_kernels(gen) -> dict:
+    """Phase 33: K1 at the extrapolation path's shapes with the RBF conv
+    runs' length scales (256 functions of 256 sorted points on twice the
+    range, contexts U{0..50} among the inner ones by `make_ctx_mask`, onto
+    the 384-point grid over (-3, 3); the grid onto the 256 targets at C =
+    128, at B = 256 for ConvCNP and 32 x 256 = 8,192 for ConvLNP's draws),
+    at the context sweeps' new masks (the flagship's 384-point grid, U{0..128}
+    and all 256 points real); K2 at the extrapolation decoders' rows with
+    the RBF runs' own weights (65,536 for CNP, AttnCNP and ConvCNP; 524,288
+    for AttnLNP's 8 draws; 2,097,152 for LNP's 32, twice the most rows the
+    chain has met: M * C = 2.7e8 < 2^31); each at phases 3-4's bars, two
+    launches bit-identical, timed beside its bound and its plain version.
+    -> {"K1": rows, "K2": rows}."""
+    conv = {n: extrap.load_model("RBF_Kernel", n, "cuda", results=RESULTS)
+            for n in ("ConvCNP", "ConvLNP")}
+    sampler = GPSampler(n_points=256, **KERNEL_CONFIGS["RBF_Kernel"])
+    x, y = sampler.sample(gen, 256, min_max=extrap.wide_range(sampler))
+    mask = extrap.make_ctx_mask(x, *extrap.draw_ctx(gen, 256, 256)).float()
+    keys = x[..., 0].contiguous()
+    grid = conv["ConvCNP"]._get_x_induced(256, "cuda")[..., 0].contiguous()
+    n_grid, n_z = grid.shape[1], conv["ConvLNP"].n_z_samples_test
+
+    def sig(name, setconv):
+        return torch.full((1,), getattr(conv[name], setconv).rbf.sigma().item(), device="cuda")
+
+    def to_targets(name, B):
+        rep = B // 256
+        return (grid.repeat(rep, 1), keys.repeat(rep, 1),
+                torch.randn((B, n_grid, 128), generator=gen, device="cuda"),
+                torch.ones((B, n_grid), device="cuda"), sig(name, "induced_to_trgt"))
+
+    flagship = load_model(RUN_DIR, "cuda")
+    sig_flag = flagship.cntxt_to_induced.rbf.sigma().item()
+    k1 = check_k1([
+        ("ctx->grid extrap", (keys, grid, y.contiguous(), mask,
+                              sig("ConvCNP", "cntxt_to_induced"))),
+        ("grid->trgt extrap", to_targets("ConvCNP", 256)),
+        ("ctx->grid extrap convlnp", (keys, grid, y.contiguous(), mask,
+                                      sig("ConvLNP", "cntxt_to_induced"))),
+        ("grid->trgt extrap convlnp", to_targets("ConvLNP", n_z * 256)),
+        ("ctx->grid sweep 128", k1_inputs(256, 256, 384, 1, sig_flag, gen, [0], max_real=128)),
+        ("ctx->grid sweep fixed 256", k1_inputs(256, 256, 384, 1, sig_flag, gen, max_real="all")),
+    ])
+    w = {m: chain_weights(score_gp.load_model(os.path.join(RESULTS, "RBF_Kernel", m, "run_0"),
+                                              "cuda").decoder.module)
+         for m in ("CNP", "AttnCNP", "AttnLNP", "LNP")}
+    w["ConvCNP"] = chain_weights(conv["ConvCNP"].decoder.module)
+    del conv, flagship
+    rows = 256 * 256
+    with torch.inference_mode():
+        k2 = check_k2([(f"decoder extrap {m.lower()}",
+                        k2_inputs(r, 128, 128, 3, 2, True, gen, w[m]), False)
+                       for m, r in (("CNP", rows), ("AttnCNP", rows), ("ConvCNP", rows),
+                                    ("AttnLNP", 8 * rows), ("LNP", 32 * rows))])
+    return {"K1": k1, "K2": k2}
+
+
+def _held(values: np.ndarray, stat: str) -> float:
+    return float(np.median(values) if stat == "median" else values.mean())
+
+
+def check_extrapolation(smi) -> tuple:
+    """Phase 34: `eval_extrapolation`'s rows of both kernels on the card,
+    2,560 functions a row (the oracle on RBF only, as the record), each
+    held statistic (`EXTRAP_HELD`) inside the band of the JAX package's own
+    values on its draws, the record printed beside; the launches of each
+    model's ten batches (`EXTRAP_CALL`); one batch of `EXTRAP_PLAIN` on the
+    plain-kernel path against the kernel path. -> ({path: {launches}},
+    {row: numbers})."""
+    bands = eval_bands()["extrapolation"]
+    paths, out, bad = {}, {}, []
+    n_batches = EXTRAP_N // 256
+    for kernel in EXTRAP_KERNELS:
+        with open(os.path.join(RESULTS, f"extrapolation_{kernel}.json")) as f:
+            record = {r["model"]: r for r in json.load(f)}
+        names = (("oracle",) if kernel == "RBF_Kernel" else ()) + EXTRAP_MODELS
+        for name in names:
+            reset_counts()
+            t0 = time.perf_counter()
+            scorer = extrap.oracle_scorer if name == "oracle" else extrap.model_scorer(
+                extrap.load_model(kernel, name, "cuda", results=RESULTS), name)
+            res = extrap.score_model(scorer, kernel, EXTRAP_N, device="cuda")
+            del scorer
+            torch.cuda.synchronize()
+            seconds, counted = time.perf_counter() - t0, counts()
+            row = extrap.row_of(name, kernel, res)
+            ref, rec = bands[kernel][row["model"]], record[row["model"]]
+            call = EXTRAP_CALL.get(name, (0, 0, 0, 0, 0))
+            held = EXTRAP_HELD.get((kernel, row["model"]), EXTRAP_HELD_DEFAULT)
+            line = []
+            for tag, stat in (("interp", "mean"), ("interp", "median"), ("extrap", "mean"),
+                              ("extrap", "median")):
+                v, band = _held(res[tag], stat), ref[tag][f"{stat}_band"]
+                ok = band[0] <= v <= band[1]
+                gated = (tag, stat) in held
+                if gated and not ok:
+                    bad.append(f"{kernel} {row['model']} {tag} {stat} {v:.3f} outside {band}")
+                recorded = f", record {rec[f'{tag}_ll_per_fn']:.2f}" if stat == "mean" else ""
+                line.append(f"{tag} {stat} {v:.3f} (JAX {ref[tag][stat]:.3f}, band "
+                            f"[{band[0]:.3f}, {band[1]:.3f}]{recorded}"
+                            f"{'' if gated else ', not held'}{'' if ok else ', OUTSIDE'})")
+            finite = np.isfinite(res["interp"]).all() and np.isfinite(res["extrap"]).all()
+            print(f"{kernel} {row['model']}: {row['n_test']} functions in {seconds:.2f}s; "
+                  + "; ".join(line) + f"; std {row['interp_std']:.2f} / {row['extrap_std']:.2f} "
+                  f"(record {rec['interp_std']:.2f} / {rec['extrap_std']:.2f}); launches "
+                  f"{counted}")
+            if not finite or row["n_test"] != EXTRAP_N:
+                bad.append(f"{kernel} {row['model']}: non-finite or missing values")
+            if counted != tuple(n_batches * c for c in call):
+                bad.append(f"{kernel} {row['model']}: launches {counted}, not {n_batches} x {call}")
+            if name != "oracle":
+                paths[f"extrap_{kernel.split('_')[0].lower()}_{name.lower()}"] = dict(
+                    launches=counted)
+            out[f"{kernel} {row['model']}"] = dict(
+                seconds=seconds, **{k: row[k] for k in ("interp_ll_per_fn", "extrap_ll_per_fn")},
+                interp_median=_held(res["interp"], "median"),
+                extrap_median=_held(res["extrap"], "median"))
+            release()
+    kernel, name = EXTRAP_PLAIN
+    lls = {}
+    for label, use_kernels in (("kernel", True), ("plain", False)):
+        scorer = extrap.model_scorer(
+            extrap.load_model(kernel, name, "cuda", use_kernels, results=RESULTS), name)
+        res = extrap.score_model(scorer, kernel, 256, device="cuda", seed=1)
+        lls[label] = np.concatenate([res["interp"], res["extrap"]]).astype(np.float64)
+    err = np.abs(lls["kernel"] - lls["plain"])
+    worst = float((err / (1e-4 * np.abs(lls["plain"]) + 0.02)).max())
+    print(f"{kernel} {name}: one batch, kernel vs plain-kernel path: per-function LL largest "
+          f"difference {err.max():.3e} ({worst:.3f} of its bar); {smi}")
+    if worst > 1.0:
+        bad.append(f"{kernel} {name}: the kernel path disagrees with the plain path")
+    if bad:
+        raise AssertionError("extrapolation: " + "; ".join(bad))
+    return paths, out
+
+
+def sweep_records() -> list:
+    """[(run directory under results/, file name, counts)] of the context
+    sweep records, sorted."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(RESULTS, "*", "*", "run_*", "ctx_sweep*.json"))):
+        with open(path) as f:
+            counts_ = [r["n_context"] for r in json.load(f)]
+        out.append((os.path.relpath(os.path.dirname(path), RESULTS), os.path.basename(path),
+                    counts_))
+    return out
+
+
+def check_ctx_sweeps(smi) -> tuple:
+    """Phase 35: `gw_eval_ctx`'s sweep of each of the nine records at 1,024
+    waveforms a count, p50 and p90 at every count inside the bands of the
+    JAX package's own values on its draws, the record and the other four
+    fields printed beside; the launches (`SWEEP_CALL` a batch). -> ({path:
+    {launches}}, {record: seconds})."""
+    bands = eval_bands()["ctx_sweep"]
+    paths, seconds, bad = {}, {}, []
+    records = sweep_records()
+    if len(records) != 9:
+        raise AssertionError(f"{len(records)} context-sweep records, not 9")
+    for rel, fname, counts_ in records:
+        fixed = fname.endswith("_fixed.json")
+        reset_counts()
+        res = gw_eval_ctx.sweep(os.path.join(RESULTS, rel), counts_, fixed, SWEEP_N,
+                                device="cuda")
+        counted = counts()
+        with open(os.path.join(RESULTS, rel, fname)) as f:
+            recorded = json.load(f)
+        tag = f"{rel} {'fixed' if fixed else 'U{0..n}'}"
+        print(f"{tag}: {len(counts_)} counts x {SWEEP_N} waveforms in {res['seconds']:.2f}s, "
+              f"launches {counted}")
+        n_calls = len(counts_) * (SWEEP_N // 256)
+        if counted != tuple(n_calls * c for c in SWEEP_CALL):
+            bad.append(f"{tag}: launches {counted}, not {n_calls} x {SWEEP_CALL}")
+        for row, rec, ref in zip(res["rows"], recorded, bands[rel][fname]["rows"]):
+            if not row["n_context"] == rec["n_context"] == ref["n_context"]:
+                raise AssertionError(f"{tag}: counts out of order")
+            cells = []
+            for key in ("p50", "p90"):
+                band = ref[f"{key}_band"]
+                ok = band[0] <= row[key] <= band[1]
+                if not ok:
+                    bad.append(f"{tag} n={row['n_context']} {key} {row[key]:.5g} outside {band}")
+                cells.append(f"{key} {row[key]:.5g} (JAX {ref[key]:.5g}, band [{band[0]:.5g}, "
+                             f"{band[1]:.5g}], record {rec[key]:.5g}{'' if ok else ', OUTSIDE'})")
+            others = ", ".join(f"{k} {row[k]:.4g} ({rec[k]:.4g})" for k in (
+                "p99", "low_mc_tercile_p50", "low_mc_tercile_p90", "frac_below_0.03"))
+            print(f"   n={row['n_context']}: " + "; ".join(cells) + f"; {others}")
+            if not all(np.isfinite(row[k]) for k in row):
+                bad.append(f"{tag} n={row['n_context']}: non-finite")
+        paths[f"sweep_{rel.replace('/', '_')}{'_fixed' if fixed else ''}"] = dict(
+            launches=counted)
+        seconds[tag] = res["seconds"]
+        release()
+    print(f"context sweeps (host clock; {smi}): " + json.dumps(seconds))
+    if bad:
+        raise AssertionError("context sweeps: " + "; ".join(bad))
+    return paths, seconds
+
+
+def check_tools(smi) -> dict:
+    """Phase 36: `profiling.trace` around one replay of the flagship scoring
+    batch's CUDA graph writes a Chrome trace whose kernels include K1's and
+    K2's; `StepTimer`, a synchronize after each of 20 replays, within
+    `TOOL_TIMER_RTOL` of the replay time CUDA events measure around 20
+    replays; `viz.gen_p_y_pred` on the flagship run and
+    `viz.get_posterior_samples_imgs` on `digits/GridConvCNP/run_0` on the
+    card equal to their CPU results within the predictive bar `PATH_TOL`."""
+    with open(os.path.join(RUN_DIR, "summary.json")) as f:
+        summary = json.load(f)
+    model = load_model(RUN_DIR, "cuda")
+    gw_gen, space = run_generator(summary), GWParameterSpace()
+    splitter = eval_splitter(summary["n_context"])
+    g = torch.Generator(device="cuda").manual_seed(3)
+    theta = torch.from_numpy(read_run_thetas(RUN_DIR)[:256]).cuda()
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        score_batch(model, splitter, g, theta, gw_gen, space)
+        graph = batch_graph(model, splitter, g, theta, gw_gen, space)
+        graph.replay(theta)
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp):
+                graph.replay(theta)
+                torch.cuda.synchronize()
+            with open(os.path.join(tmp, profiling.TRACE_FILE)) as f:
+                events = json.load(f)["traceEvents"]
+        names = [e["name"] for e in events if e.get("cat") == "kernel"]
+        ids = sorted({k for k in map(hand_kernel_id, names) if k is not None})
+        print(f"trace of one replay: {len(names)} kernels, hand kernels {ids}")
+        if not {"K1", "K2"} <= set(ids):
+            raise AssertionError(f"the trace lists the hand kernels {ids}, not K1 and K2")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(TOOL_REPLAYS):
+            graph.replay(theta)
+        end.record()
+        end.synchronize()
+        event_ms = start.elapsed_time(end) / TOOL_REPLAYS
+        timer = profiling.StepTimer(256)
+        timer.start()
+        for _ in range(TOOL_REPLAYS):
+            graph.replay(theta)
+            torch.cuda.synchronize()
+            timer.tick()
+        summary_t = timer.summary()
+        timer_ms = 1e3 * summary_t["mean_s"]
+        print(f"StepTimer over {TOOL_REPLAYS} synchronised replays: mean {timer_ms:.3f} ms, p50 "
+              f"{1e3 * summary_t['p50_s']:.3f}, p90 {1e3 * summary_t['p90_s']:.3f}, "
+              f"{summary_t['items_per_s']:.0f} waveforms/s; CUDA events {event_ms:.3f} ms a "
+              f"replay ({smi})")
+        if abs(timer_ms - event_ms) > TOOL_TIMER_RTOL * event_ms:
+            raise AssertionError("StepTimer disagrees with the CUDA events")
+        del graph
+        release()
+
+        x, y, cond = make_eval_batch(theta[:16], gw_gen, space)
+        batch = splitter(torch.Generator(device="cuda").manual_seed(4), x, y, condition=cond)
+        obs = torch.randn((4, 16, 256, 1), generator=g, device="cuda")
+        preds = {}
+        cpu_model = load_model(RUN_DIR, "cpu")
+        for dev, m in (("cuda", model), ("cpu", cpu_model)):
+            b = {k: v.to(dev) for k, v in batch.items()}
+            preds[dev] = [t.cpu() for t in viz.gen_p_y_pred(m, b, 4, obs_eps=obs.to(dev))]
+        gen_err = max((a - b).abs().max().item() for a, b in zip(preds["cuda"], preds["cpu"]))
+
+        img_run = os.path.join(RESULTS, "digits", "GridConvCNP", "run_0")
+        _, test = get_train_test_img_dataset("digits")
+        imgs = test.images[:8]
+        mask = torch.rand(imgs.shape[:-1] + (1,), generator=torch.Generator().manual_seed(5)) < 0.3
+        img = {}
+        for dev in ("cuda", "cpu"):
+            m = score_img.load_model(img_run, dev)
+            img[dev] = [t.cpu() for t in viz.get_posterior_samples_imgs(m, mask.to(dev),
+                                                                        imgs.to(dev))]
+        img_err = max((a - b).abs().max().item() for a, b in zip(img["cuda"], img["cpu"]))
+    print(f"gen_p_y_pred on the flagship run (16 waveforms, 4 noise draws), card vs CPU: "
+          f"{gen_err:.3e}; get_posterior_samples_imgs on digits/GridConvCNP (8 images): "
+          f"{img_err:.3e} (bar {PATH_TOL})")
+    if not (gen_err <= PATH_TOL and img_err <= PATH_TOL):
+        raise AssertionError("a viz function on the card disagrees with its CPU result")
+    return dict(trace_kernels=len(names), timer_ms=timer_ms, event_ms=event_ms,
+                gen_p_y_pred_err=gen_err, posterior_imgs_err=img_err)
+
+
+def run_eval_tool_phases(gen, smi) -> dict:
+    """Phases 33-36, the evaluation and notebook tools, in order (module
+    docstring)."""
+    phase("evaluation kernels: K1 at the extrapolation grid (384 points over (-3, 3)) and the "
+          "sweeps' masks, K2 at 65,536 to 2,097,152 rows, with the runs' own weights vs plain")
+    kernels = check_eval_kernels(gen)
+    release()
+    phase(f"the extrapolation evaluation: both kernels' rows at {EXTRAP_N} functions, held to "
+          "the bands of JAX's own values on its draws; one conv run on the plain-kernel path")
+    extrap_paths, extrap_rows = check_extrapolation(smi)
+    phase(f"the context sweeps: the nine records at {SWEEP_N} waveforms, p50 and p90 held to "
+          "the bands of JAX's own values on its draws")
+    sweep_paths, sweep_s = check_ctx_sweeps(smi)
+    phase("the tools on the card: trace, StepTimer, gen_p_y_pred, get_posterior_samples_imgs")
+    tools = check_tools(smi)
+    release()
+    print(f"evaluation tools (host clock; {smi}): " + json.dumps(
+        {"extrapolation": extrap_rows, "sweeps_s": sweep_s, "tools": tools}))
+    return dict(kernels=kernels, paths={**extrap_paths, **sweep_paths})
+
+
 def kernel_entry(name, source, replaces, launches, rows, path_shapes, launches_by_path):
     """One kernel's line entry: times summed over the shapes one train step
     runs, the largest error over every shape checked; `launches` is the
@@ -3381,6 +3754,11 @@ def main() -> int:
     k2b_rows += fam16["kernels"]["K2-bf16"]
     k3b_rows += fam16["kernels"]["K3-bf16"]
 
+    release()
+    tools = run_eval_tool_phases(gen, smi)
+    k1_rows += tools["kernels"]["K1"]
+    k2_rows += tools["kernels"]["K2"]
+
     families = {}
     for name, run_dir, dtype_steps, seeds in FAMILY_RUNS:
         for dtype, steps in zip((None, BF16), dtype_steps):
@@ -3414,7 +3792,8 @@ def main() -> int:
              **{f"score_bf16_{k.replace(' ', '_')}": p
                 for k, p in fam16["score_paths"].items()},
              **{f"train_bf16_{k.replace(' ', '_')}": f["path"]
-                for k, f in fam16["train"].items()}}
+                for k, f in fam16["train"].items()},
+             **tools["paths"]}
     print(f"long-waveform batch times (host clock; {smi}): " + json.dumps(long_ms))
     print(f"latent batches, kernel vs plain path (host clock; {smi}): " + json.dumps(latent_batch))
 

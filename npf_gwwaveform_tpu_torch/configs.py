@@ -41,7 +41,7 @@ which the GW and GP loaders refuse, as the image loader refuses theirs.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -162,7 +162,8 @@ def _set_model(name: str, r_dim: int, dtype: Optional[torch.dtype], use_kernels:
 
 def gp_model_1d(name: str, r_dim: int = R_DIM, dtype: Optional[torch.dtype] = None,
                 cnn_kernel_size: int = 19, cnn_norm_eps: float = 1e-3,
-                use_kernels: bool = True) -> nn.Module:
+                use_kernels: bool = True,
+                induced_range: Tuple[float, float] = (-1.5, 1.5)) -> nn.Module:
     """The 1-D GP benchmark's model, as the JAX package's `gp_model_1d`
     builds it: CNP and LNP (the xy-encoder's MLP at 2 * r_dim), AttnCNP and
     AttnLNP (at r_dim, a transformer attender of 8 heads), LNP and AttnLNP
@@ -170,13 +171,16 @@ def gp_model_1d(name: str, r_dim: int = R_DIM, dtype: Optional[torch.dtype] = No
     ConvCNP (five blocks, the MLP decoder through K2) or ConvLNP (four
     blocks in both grid CNNs, `is_global`, NPML with 16 z draws in training
     and 32 in eval, a linear decoder), each on a grid of 64 points a unit,
-    BatchNorm eps `cnn_norm_eps`. The set family's decoder is the MLP chain
-    (K2 and K3) too."""
+    BatchNorm eps `cnn_norm_eps`, the grid over `induced_range` (JAX's
+    `clone(induced_range=...)` builds the same modules; the parameters do
+    not depend on it). The set family's decoder is the MLP chain (K2 and
+    K3) too."""
     if name in _SET_CONFIGS:
         return _set_model(name, r_dim, dtype, use_kernels)
     common = dict(x_dim=1, y_dim=1, r_dim=r_dim, density_induced=64,
                   cnn_kernel_size=cnn_kernel_size, cnn_norm="batch", cnn_n_conv_layers=2,
-                  cnn_norm_eps=cnn_norm_eps, use_kernels=use_kernels, dtype=dtype)
+                  cnn_norm_eps=cnn_norm_eps, use_kernels=use_kernels, dtype=dtype,
+                  induced_range=tuple(induced_range))
     if name == "ConvCNP":
         return ConvCNP(cnn_n_blocks=5, **common)
     if name == "ConvLNP":

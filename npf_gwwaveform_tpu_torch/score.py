@@ -172,10 +172,13 @@ def batch_graph(model, splitter, generator, theta, gen, space, n_points: int = 2
         [theta.clone()], model, [generator], warmup_calls=0)
 
 
-def eval_splitter(n_context: int) -> CntxtTrgtSplitter:
-    """The eval split: per-waveform context counts U{0..n_context}."""
+def eval_splitter(n_context: int, fixed: bool = False) -> CntxtTrgtSplitter:
+    """The eval split: per-waveform context counts U{0..n_context}, or with
+    `fixed` exactly `n_context` contexts a waveform (`gw_eval_ctx --fixed`);
+    every point a target."""
     return CntxtTrgtSplitter(
-        contexts_getter=GetRandomIndcs(a=0.0, b=n_context, is_indep_n=True),
+        contexts_getter=GetRandomIndcs(a=float(n_context) if fixed else 0.0, b=n_context,
+                                       is_indep_n=not fixed),
         targets_getter=get_all_indcs,
     )
 

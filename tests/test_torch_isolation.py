@@ -8,8 +8,11 @@ modules import with sklearn blocked too (the digits ship with the port),
 `score_img` scores a digits GridConvLNP run and `train_img` trains 2 steps
 of GridConvCNP; in bfloat16, `score_gp --bf16` scores a ConvLNP run,
 `score_img --bf16` an AttnCNP run, and `train_gp --bf16` and `train_img
---bf16` train 2 steps. Also: chip_smoke.py fails, printing no result,
-where it cannot run."""
+--bf16` train 2 steps; `eval_extrapolation` scores one model on 2
+functions and `gw_eval_ctx` sweeps one count on 2 waveforms, with
+matplotlib, pandas, PIL, imageio and seaborn blocked as well (every test
+here blocks them). Also: chip_smoke.py fails, printing no result, where
+it cannot run."""
 
 import json
 import os
@@ -25,7 +28,11 @@ torch.set_num_threads(1)
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 RUN_DIR = os.path.join(REPO, "results", "GW_time_cond_film_ctx192_d128", "ConvCNP", "run_1")
 
-_BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "scipy", "h5py", "npf_gwwaveform_tpu")
+# the JAX package and what the card's machine lacks: its plotting, table and
+# HDF5 libraries (`viz`, `notebooks` and `data.cache` import them inside
+# their functions)
+_BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "scipy", "h5py", "npf_gwwaveform_tpu",
+            "matplotlib", "pandas", "PIL", "imageio", "seaborn")
 
 _ISOLATED = f"""
 import sys
@@ -128,6 +135,23 @@ print(json.dumps({{"gp": gp, "img": img, "lls": [s_gp["mean_test_ll"], s_img["me
 """
 
 
+_EVAL_ISOLATED = f"""
+import sys
+for name in {_BLOCKED!r}:
+    sys.modules[name] = None
+import json, os
+from npf_gwwaveform_tpu_torch import eval_extrapolation, gw_eval_ctx
+rows = eval_extrapolation.main(["--device", "cpu", "--kernel", "RBF_Kernel", "--models",
+                                "ConvCNP", "--n-test", "2", "--out", sys.argv[1]])
+sweep = gw_eval_ctx.main([{RUN_DIR!r}, "--ctx", "16", "--n-test", "2", "--device", "cpu",
+                          "--out", sys.argv[1]])
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and m.split(".")[0] in {_BLOCKED!r}]
+assert not loaded, loaded
+print(json.dumps({{"extrap": rows, "sweep": sweep}}))
+"""
+
+
 def _env():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("PYTHONSTARTUP", None)
@@ -195,3 +219,21 @@ def test_bf16_gp_and_image_families_run_without_jax(tmp_path):
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["gp"]["n"] == 1 and res["img"]["n"] == 1
     assert all(isinstance(v, float) for v in res["lls"])
+
+
+def test_eval_tools_run_without_jax(tmp_path):
+    """`eval_extrapolation` (ConvCNP on twice the range, 2 functions) and
+    `gw_eval_ctx` (16 contexts, 2 waveforms) on the CPU, none of the JAX
+    package's modules nor the plotting and table libraries importable."""
+    proc = subprocess.run([sys.executable, "-c", _EVAL_ISOLATED, str(tmp_path)], cwd=REPO,
+                          env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    (row,) = res["extrap"]
+    assert row["model"] == "ConvCNP" and row["n_test"] == 2
+    assert all(isinstance(row[k], float) for k in ("interp_ll_per_fn", "extrap_ll_per_fn"))
+    (sweep,) = res["sweep"]
+    assert sweep["n_context"] == 16 and isinstance(sweep["p50"], float)
+    assert os.path.exists(tmp_path / "extrapolation_RBF_Kernel.json")
+    assert os.path.exists(tmp_path / "GW_time_cond_film_ctx192_d128" / "ConvCNP" / "run_1"
+                          / "ctx_sweep.json")
