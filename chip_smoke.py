@@ -290,7 +290,26 @@ Phases, each announced with the seconds elapsed:
      `viz.gen_p_y_pred` on the flagship run and
      `viz.get_posterior_samples_imgs` on `digits/GridConvCNP/run_0` against
      their CPU results.
-Phases 17-36 run after phase 16's scoring and before phase 14's training
+ 37. the device mesh (`parallel`, `Trainer(mesh=...)`), after the kernels at
+     a rank's shard (K1 both launches, K2, K3, K2-bf16, K3-bf16 at the
+     flagship's B = 128 of 256 and at 1,024 of the 2 s path's 2,048
+     targets, `check_mesh_kernels`), on a one-rank NCCL group: bench.py's
+     flagship (`multichip.flagship_trainer`) at batch 256 through
+     `Trainer(mesh=...)` on a `data` mesh and a 1 x 1 `data` x `seq` mesh,
+     3 graphed steps bit for bit against 3 eager ones; then, on each mesh,
+     20 graphed steps against 20 graphed steps without a mesh from the same
+     init and seed, bit for bit (else the step bars and 2e-4); the replay
+     wall ms of each, the collectives' share of a traced replay, each mesh
+     path's launches; in float32 and bf16;
+ 38. two gloo ranks sharing the card (`parallel.launch.run_ranks`), eager:
+     the flagship at batch 256 on `data` = 2, the 2 s k=37 FiLM
+     configuration at batch 32 on `data` 1 x `seq` 2, and digits
+     GridConvCNP with BatchNorm and its blocks recomputed in the backward
+     pass at batch 32 on `data` = 2, 5 steps each against one process's
+     (the first step at the step bars, the trace at 2e-4), each rank's
+     launches, the graphed entry points refusing the gloo mesh; then
+     `multichip.dryrun_multichip(1)`.
+Phases 17-38 run after phase 16's scoring and before phase 14's training
 loop. It ends with a JSON line of per-kernel numbers and the JSON result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -311,12 +330,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from npf_gwwaveform_tpu_torch import _build
 from npf_gwwaveform_tpu_torch import eval_extrapolation as extrap
-from npf_gwwaveform_tpu_torch import gw_eval_ctx
+from npf_gwwaveform_tpu_torch import gw_eval_ctx, multichip
 from npf_gwwaveform_tpu_torch import score as score_mod
 from npf_gwwaveform_tpu_torch import score_gp, score_img, train_gp, train_gw, train_img, viz
 from npf_gwwaveform_tpu_torch.configs import (
@@ -327,7 +347,7 @@ from npf_gwwaveform_tpu_torch.data.images import get_train_test_img_dataset
 from npf_gwwaveform_tpu_torch.data.gw import GWParameterSpace
 from npf_gwwaveform_tpu_torch.kernel_measure import (
     K2_BF16_SUM_TOL, K2_CASES, cublas_chain_ms, k1_bound, k1_inputs, k2_bf16_ok, k2_bf16_report,
-    k2_bound, k2_inputs, k3_bf16_ok, k3_bf16_report, k3_bound, k3_inputs, time_ms,
+    k2_bound, k2_inputs, k3_bf16_ok, k3_bf16_report, k3_bound, k3_inputs, measure_step, time_ms,
     traced_launches,
 )
 from npf_gwwaveform_tpu_torch.ops.kernels import (
@@ -337,6 +357,8 @@ from npf_gwwaveform_tpu_torch.ops.kernels.mlp_chain import (
     fused_relu_mlp, fused_relu_mlp_bwd, fused_relu_mlp_bwd_plain, fused_relu_mlp_plain,
 )
 from npf_gwwaveform_tpu_torch.ops.kernels.setconv import setconv_exprbf_fwd, setconv_exprbf_plain
+from npf_gwwaveform_tpu_torch.parallel import make_mesh
+from npf_gwwaveform_tpu_torch.parallel.launch import run_ranks
 from npf_gwwaveform_tpu_torch.run_report import (
     bf16_gap_bar, gp_band, gp_bf16_bar_runs, gp_runs, gp_set_runs, img_bf16_bar_runs, img_runs,
     recorded_scores, score_bands, scored_runs,
@@ -797,6 +819,19 @@ IMG16_TRAIN = tuple(t for t in IMG_TRAIN if t[0] in ("img gridconvcnp", "img cnp
 # per-waveform values of `experiments/eval_extrapolation.py` and
 # `experiments/gw_eval_ctx.py` on their own draws, and their bands
 # (tests/jax_eval_bands.py: `run_report.bands_of`'s rule at half the count)
+# the device mesh (phases 37-38): bench.py's flagship at its batch of 256;
+# each check's graphed steps against eager ones, and the steps a mesh path
+# runs against one process's; loss traces at the JAX package's own mesh
+# bar (tests/test_training.py:130); two gloo ranks on the card, their
+# launch's deadline
+MESH_BATCH, MESH_STEPS, MESH_GRAPH_CHECK = 256, 20, 3
+MESH_TRACE_RTOL = 2e-4
+GLOO_STEPS, GLOO_LONG_BATCH, RANKS_S = 5, 32, 300
+# phase 38's image cases: digits GridConvCNP (BatchNorm over the data axis)
+# at train_img.py's batch of 32, its blocks stored and recomputed in the
+# backward pass; ROW_ORDERS orders of one process's rows give its own spread
+GLOO_IMG_RUN, GLOO_IMG_BATCH = os.path.join(RESULTS, "digits", "GridConvCNP", "run_0"), 32
+ROW_ORDERS = 8
 EVAL_BANDS_JSON = os.path.join(ROOT, "tests", "jax_eval_bands.json")
 EXTRAP_KERNELS = ("RBF_Kernel", "Periodic_Kernel")
 EXTRAP_N = 2560  # the records' count: ten batches of 256 a model, eager
@@ -1311,7 +1346,7 @@ def rounding_grads(summary, state, batch, names, build=None, bf16=False) -> list
         m = trainer.model
         hooks = [] if bf16 else [getattr(m, name).register_forward_hook(round_apart)
                                  for name in ("cntxt_to_induced", "induced_to_trgt", "decoder")
-                                 if hasattr(m, name)]
+                                 if isinstance(getattr(m, name, None), torch.nn.Module)]
         with plain_kernels() if bf16 else contextlib.nullcontext():
             if bf16:  # plain_kernels restores the wrapper
                 setconv.setconv_exprbf_fwd = k1_rounded
@@ -3188,6 +3223,356 @@ def run_eval_tool_phases(gen, smi) -> dict:
     return dict(kernels=kernels, paths={**extrap_paths, **sweep_paths})
 
 
+def _mesh_grad_errs(name, grads, ref, state, batch, build, bf16) -> float:
+    """The largest per-parameter gradient error of a mesh step against one
+    process's (`_step_grad_errs`, the BatchNorm-cancelled biases apart),
+    with `rounding_grads`' allowance for a gradient past its bar: the one
+    process's path with its kernels' modules rounded apart coming within the
+    bar of the mesh's."""
+    grad_rtol = BF16_STEP_GRAD_RTOL if bf16 else STEP_GRAD_RTOL
+    errs, zero = _step_grad_errs(grads, ref)
+    over = [n for n, e in errs.items() if e > grad_rtol]
+    if over:
+        draws = rounding_grads(None, state, batch, over, build, bf16)
+        for n in over:
+            scale = ref[n].abs().max().clamp_min(1e-30)
+            reach = min((grads[n] - d[n].cpu()).abs().max() for d in draws) / scale
+            print(f"   {name}, {n}: {errs[n]:.3e} of its max magnitude from one process; one "
+                  f"process with its kernels' modules rounded apart comes within {reach:.3e}")
+            errs[n] = reach.item()
+    worst = max(errs.values())
+    if worst > grad_rtol or max(zero.values()) > grad_rtol:
+        raise AssertionError(f"{name}: the mesh step's gradients are not one process's")
+    return worst
+
+
+def check_mesh_nccl(dtype, smi) -> dict:
+    """Phase 37 in compute `dtype`, on a one-rank NCCL group: bench.py's
+    flagship (`multichip.flagship_trainer`: no BatchNorm, batch 256, fresh
+    waveforms every step) through `Trainer(mesh=...)` on a `data` mesh and
+    on a 1 x 1 `data` x `seq` mesh. On each, `MESH_GRAPH_CHECK` graphed
+    steps bit for bit against as many eager ones (losses and parameters).
+    Then, on each mesh, `MESH_STEPS` graphed steps against as many graphed
+    steps without a mesh, from the same init and seed: the loss traces and
+    the parameters bit for bit (a sum over one rank is a copy, and the mesh
+    paths sum in no other order: PERF.md), else the first step at the step
+    bars and the trace at `MESH_TRACE_RTOL`; the largest differences
+    printed. Each run's replay wall ms (median of the steps after the
+    capture, synchronised), the collectives' device share of each mesh
+    graph's replay, and each mesh path's launches (`path_launches`)."""
+    bf16 = dtype is not None
+    tag = " (bf16)" if bf16 else ""
+    sample = train_gw.batch_sampler(multichip.FLAGSHIP_DATA, MESH_BATCH)
+    meshes = {"data": make_mesh(), "data x seq": make_mesh({"data": 1, "seq": 1})}
+    for name, mesh in meshes.items():
+        graphed, eager = (multichip.flagship_trainer("cuda", dtype, mesh) for _ in range(2))
+        g_losses = graphed.train_steps_generated(sample, MESH_GRAPH_CHECK)
+        e_losses = []
+        for _ in range(MESH_GRAPH_CHECK):
+            x, y, _ = sample(eager.state.generator)
+            e_losses.append(eager.train_step(x, y)["loss"])
+        same = torch.equal(g_losses, torch.stack(e_losses)) and all(
+            torch.equal(a, b) for a, b in zip(graphed.model.parameters(),
+                                              eager.model.parameters()))
+        print(f"{name} mesh{tag}: {MESH_GRAPH_CHECK} graphed steps against eager ones, losses "
+              f"{g_losses.tolist()}, bit for bit {same}")
+        if not same:
+            raise AssertionError(f"the {name} mesh's graphed steps{tag} are not its eager ones")
+        del graphed, eager
+        release()
+    runs = {}
+    for label, mesh in (*meshes.items(), ("plain", None)):
+        trainer = multichip.flagship_trainer("cuda", dtype, mesh)
+        reset_counts()
+        losses, seconds = [], []
+        for _ in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_steps_generated(sample, 1))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        (graph,) = trainer.graphs.values()
+        runs[label] = dict(trainer=trainer, losses=torch.cat(losses), counted=counts(),
+                           graph=graph, ms=1e3 * float(np.median(seconds[1:])))
+    plain_run = runs["plain"]
+    loss_rtol, grad_rtol = ((BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL) if bf16
+                            else (STEP_LOSS_RTOL, STEP_GRAD_RTOL))
+    # the first step at the step bars, on one batch from fresh trainers
+    x, y, _ = sample(torch.Generator(device="cuda").manual_seed(1))
+
+    def first_step(mesh):
+        trainer = multichip.flagship_trainer("cuda", dtype, mesh)
+        batch = trainer.splitter(torch.Generator(device="cuda").manual_seed(2), x, y)
+        loss = trainer.loss_and_grads(batch)
+        return loss, {n: p.grad.cpu() for n, p in trainer.model.named_parameters()}
+
+    plain_loss, plain_grads = first_step(None)
+    compared = {}
+    for name, mesh in meshes.items():
+        run = runs[name]
+        params = list(zip(run["trainer"].model.parameters(),
+                          plain_run["trainer"].model.parameters()))
+        bitwise = torch.equal(run["losses"], plain_run["losses"]) and all(
+            torch.equal(a, b) for a, b in params)
+        trace_rel = ((run["losses"] - plain_run["losses"]).abs()
+                     / plain_run["losses"].abs()).max().item()
+        param_abs = max((a - b).abs().max().item() for a, b in params)
+        loss, grads = first_step(mesh)
+        loss_rel = (abs(loss - plain_loss) / abs(plain_loss)).item()
+        errs, _ = _step_grad_errs(grads, plain_grads)
+        print(f"{name} mesh{tag} against no mesh, {MESH_STEPS} graphed steps at batch "
+              f"{MESH_BATCH}: loss traces and parameters bit for bit {bitwise}; largest loss "
+              f"difference {trace_rel:.3e} of the loss, parameter {param_abs:.3e}; first step: "
+              f"loss {loss_rel:.3e}, gradients {max(errs.values()):.3e} of their max magnitudes")
+        if not bitwise and not (loss_rel <= loss_rtol and max(errs.values()) <= grad_rtol
+                                and trace_rel <= MESH_TRACE_RTOL):
+            raise AssertionError(f"the one-rank {name} mesh{tag} is not the plain step")
+        compared[name] = dict(bitwise=bitwise, loss_rel=trace_rel)
+    traced = {label: measure_step(lambda: (r["graph"].replay(), torch.cuda.synchronize()), 5)
+              for label, r in runs.items()}
+    plain_step = traced["plain"]
+    times = {}
+    for name in meshes:
+        step = traced[name]
+        nccl = [e for e in step["kernels"] if "nccl" in e.key.lower()]
+        nccl_ms = sum(e.self_device_time_total for e in nccl) / 1e3
+        share = nccl_ms / step["device_ms"] if step["device_ms"] else 0.0
+        print(f"{name} mesh{tag} replay wall (host clock, synchronised, median of "
+              f"{MESH_STEPS - 1}; {smi}): mesh {runs[name]['ms']:.3f} ms, no mesh "
+              f"{plain_run['ms']:.3f} ms; one traced replay each: mesh {step['device_ms']:.3f} "
+              f"device ms in {step['n_launches']} launches, no mesh "
+              f"{plain_step['device_ms']:.3f} in {plain_step['n_launches']}; the collectives' "
+              f"kernels {sum(e.count for e in nccl)}, {nccl_ms:.4f} ms ({100 * share:.2f}% of "
+              "the mesh replay's device time; an all-reduce in place over one NCCL rank need "
+              "launch none)")
+        times[name] = dict(compared[name], mesh_ms=runs[name]["ms"], plain_ms=plain_run["ms"],
+                           collective_ms=nccl_ms, collective_share=share,
+                           device_ms=step["device_ms"], plain_device_ms=plain_step["device_ms"],
+                           launches=step["n_launches"], plain_launches=plain_step["n_launches"])
+    paths = {name: path_launches(f"{name} mesh{tag}", runs[name]["counted"], runs[name]["graph"],
+                                 WARMUP_CALLS + 1, TRAIN16_CALL if bf16 else TRAIN_CALL)
+             for name in meshes}
+    return dict(paths=paths, times=times)
+
+
+def _row_order_spread(build, batch, ref_losses, ref_grads) -> tuple:
+    """One process's own moves when it sums the same rows in other orders:
+    `ROW_ORDERS` trainers from `build()`, each with every split batch's rows
+    permuted (after the split, so that each example keeps its draws) by one
+    fixed permutation, `GLOO_STEPS` eager steps -> (the largest relative
+    move of a loss from `ref_losses`, {parameter: the largest error of its
+    first-step gradient against `ref_grads`, `_step_grad_errs`'s})."""
+    trace, errs = 0.0, {}
+    for k in range(ROW_ORDERS):
+        trainer, sample = build()
+        perm = torch.randperm(batch, generator=torch.Generator().manual_seed(k)).to("cuda")
+        split = trainer.splitter
+
+        def permuted(g, x, y, condition=None, split=split, perm=perm):
+            return {key: v[perm] if torch.is_tensor(v) and v.shape[:1] == (batch,) else v
+                    for key, v in split(g, x, y, condition=condition).items()}
+
+        trainer.splitter = permuted
+        for step in range(GLOO_STEPS):
+            x, y, _ = sample(trainer.state.generator)
+            loss = trainer.train_step(x, y)["loss"].item()
+            trace = max(trace, abs(loss - ref_losses[step]) / abs(ref_losses[step]))
+            if step == 0:
+                e, _ = _step_grad_errs({n: p.grad.cpu() for n, p in
+                                        trainer.model.named_parameters()}, ref_grads)
+                errs = {n: max(v, errs.get(n, 0.0)) for n, v in e.items()}
+        del trainer
+    return trace, errs
+
+
+def check_mesh_gloo(smi) -> dict:
+    """Phase 38: two ranks sharing the card over gloo (NCCL refuses two
+    ranks on one device), eager, started with `parallel.launch.run_ranks`:
+    the flagship at batch 256 on `data` = 2, the 2 s k=37 FiLM
+    configuration (`LONG_K37`'s) at batch 32 on `data` 1 x `seq` 2, and
+    digits GridConvCNP (BatchNorm over the data axis) at batch 32 on `data`
+    = 2 with its blocks stored and recomputed in the backward pass, each
+    `GLOO_STEPS` steps from one process's init and generator seed
+    (`multichip.train_on_mesh`), against that process's steps here
+    (`multichip.run_trainer`): the first step's loss at the step bar; its
+    gradients at the step bar (`rounding_grads`' allowance) and the loss
+    traces at `MESH_TRACE_RTOL`, or, for the image model, within one
+    process's own spread over `ROW_ORDERS` orders of its rows where that is
+    larger (`_row_order_spread`: its first-step gradients sum thousands of
+    cancelling terms, and the BatchNorm-cancelled biases' rounding noise
+    takes Adam steps of +-lr); every rank's launches of K1, K2 and K3, and
+    the graphed entry points refusing the gloo mesh. Then the recomputed
+    image step against the stored one on the ranks: the recomputation runs
+    on the autograd engine's device thread and must normalise with the
+    global batch's statistics, as the forward did, so the two are bit for
+    bit (else the first step at the step bars)."""
+    img_call = img_train_call("GridConvCNP")
+    cases = {"flagship data=2": (None, {"data": 2}, MESH_BATCH, False, TRAIN_CALL),
+             "k37 seq=2": (LONG_K37, {"data": 1, "seq": 2}, GLOO_LONG_BATCH, False, TRAIN_CALL),
+             "img gridconvcnp data=2": (GLOO_IMG_RUN, {"data": 2}, GLOO_IMG_BATCH, False,
+                                        img_call),
+             "img gridconvcnp remat data=2": (GLOO_IMG_RUN, {"data": 2}, GLOO_IMG_BATCH, True,
+                                              img_call)}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [dict(run_dir=run_dir, axes=axes, steps=GLOO_STEPS, batch=batch, device="cuda",
+                     grads_out=os.path.join(tmp, f"grads{i}.pt"), remat=remat)
+                for i, (run_dir, axes, batch, remat, _) in enumerate(cases.values())]
+        t0 = time.perf_counter()
+        ranks = run_ranks("npf_gwwaveform_tpu_torch.multichip:mesh_rank", 2, (runs,),
+                          backend="gloo", timeout=RANKS_S)
+        launch_s = time.perf_counter() - t0
+        grads = [torch.load(r["grads_out"]) for r in runs]
+    out = {}
+    for i, (name, (run_dir, axes, batch, remat, call)) in enumerate(cases.items()):
+        def build(run_dir=run_dir, batch=batch, remat=remat):
+            return multichip.run_trainer(run_dir, GLOO_STEPS, batch, "cuda", remat=remat)
+
+        trainer, sample = build()
+        state = copy.deepcopy(trainer.model.state_dict())
+        g = torch.Generator(device="cuda").manual_seed(0)  # the first step's draws, again
+        x, y, cond = sample(g)
+        first_batch = trainer.splitter(g, x, y, condition=cond)
+        reset_counts()
+        losses, ref = [], None
+        for step in range(GLOO_STEPS):
+            x, y, cond = sample(trainer.state.generator)
+            m = trainer.train_step(x, y) if cond is None else trainer.train_step_cond(x, y, cond)
+            losses.append(m["loss"].item())
+            if step == 0:
+                ref = {n: p.grad.cpu() for n, p in trainer.model.named_parameters()}
+        one_counts = counts()
+        del trainer
+        mesh_losses = ranks[0][i]["losses"]
+        if any(r[i]["losses"] != mesh_losses for r in ranks):
+            raise AssertionError(f"{name}: the ranks report different losses")
+        loss_rel = abs(mesh_losses[0] - losses[0]) / abs(losses[0])
+        trace_rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_losses, losses))
+        trace_bar = MESH_TRACE_RTOL
+        if run_dir == GLOO_IMG_RUN:
+            spread, row_errs = _row_order_spread(build, batch, losses, ref)
+            trace_bar = max(trace_bar, spread)
+            errs, zero = _step_grad_errs(grads[i], ref)
+            worst = max(errs.values())
+            print(f"   {name}: one process over {ROW_ORDERS} orders of its rows moves its "
+                  f"trace by up to {spread:.3e}; past the gradient bar: " + ", ".join(
+                      f"{n} {e:.3e} (its rows' orders {row_errs[n]:.3e})"
+                      for n, e in errs.items() if e > STEP_GRAD_RTOL))
+            if (max(zero.values()) > STEP_GRAD_RTOL
+                    or any(e > max(STEP_GRAD_RTOL, row_errs[n]) for n, e in errs.items())):
+                raise AssertionError(f"{name}: the mesh step's gradients are not one process's")
+        else:
+            worst = _mesh_grad_errs(name, grads[i], ref, state, first_batch,
+                                    lambda build=build: build()[0], False)
+        rank_counts = [tuple(r[i]["counts"]) for r in ranks]
+        refused = [r[i]["refused"] for r in ranks]
+        print(f"{name} over gloo, 2 ranks on one card, {GLOO_STEPS} eager steps: losses "
+              f"{[round(v, 4) for v in mesh_losses]} against one process's "
+              f"{[round(v, 4) for v in losses]}; first step loss {loss_rel:.3e}, gradients "
+              f"{worst:.3e} of their max magnitudes; trace {trace_rel:.3e} (bar "
+              f"{trace_bar:.3e}); each rank's launches (K1, K2, K3, K2-bf16, K3-bf16) "
+              f"{rank_counts}, one process's {one_counts}; the graphed entry points refused: "
+              f"{refused[0]!r}")
+        if not (loss_rel <= STEP_LOSS_RTOL and trace_rel <= trace_bar):
+            raise AssertionError(f"{name}: the gloo mesh's losses are not one process's")
+        if any(c != tuple(GLOO_STEPS * k for k in call) for c in rank_counts):
+            raise AssertionError(f"{name}: a rank launched {rank_counts}, not {call} a step")
+        if any(r is None or "cannot capture gloo" not in r for r in refused):
+            raise AssertionError(f"{name}: a graphed entry point took the gloo mesh")
+        out[name] = dict(loss_rel=loss_rel, trace_rel=trace_rel, trace_bar=trace_bar,
+                         grad_err=worst, launches=rank_counts[0])
+        release()
+    stored, remat = (list(cases).index(k) for k in ("img gridconvcnp data=2",
+                                                     "img gridconvcnp remat data=2"))
+    same = ranks[0][remat]["losses"] == ranks[0][stored]["losses"] and all(
+        torch.equal(grads[remat][n], grads[stored][n]) for n in grads[stored])
+    errs, zero = _step_grad_errs(grads[remat], grads[stored])
+    first = abs(ranks[0][remat]["losses"][0] - ranks[0][stored]["losses"][0]) / abs(
+        ranks[0][stored]["losses"][0])
+    print(f"the recomputed image step on the ranks against the stored one: bit for bit {same}; "
+          f"first step loss {first:.3e}, gradients {max(errs.values()):.3e} of their max "
+          "magnitudes")
+    if not same and not (first <= STEP_LOSS_RTOL and max(errs.values()) <= STEP_GRAD_RTOL
+                         and max(zero.values()) <= STEP_GRAD_RTOL):
+        raise AssertionError("the recomputed image step on the mesh is not the stored one")
+    print(f"phase 38's two ranks: {launch_s:.1f} s from their start to their results ({smi})")
+    return dict(out, launch_s=launch_s, remat_bitwise=same)
+
+
+def check_mesh_kernels(gen) -> dict:
+    """K1, K2 and K3 (and K2-bf16, K3-bf16) at the shapes a rank's shard
+    gives them on the mesh paths: the flagship's half batch, B = 128 of 256
+    (256 points onto the 192-point grid, U{0..64} real, and back at C =
+    128; the decoder at 128 x 256 = 32,768 rows with its init weights), and
+    half the 2 s targets, 1,024 of 2,048, on the k=37 run's grid->targets
+    launch at B = 32 (its weights and length scales; the decoder at 32 x
+    1,024 = 32,768 rows); each at phases 3-5's and 9's bars, two launches
+    bit-identical, timed beside its bound and plain version."""
+    flag = multichip.flagship_trainer("cuda").model
+    long_model = load_model(LONG_K37, "cuda")
+    sig_ctx, sig_trgt = (getattr(flag, s).rbf.sigma().item()
+                         for s in ("cntxt_to_induced", "induced_to_trgt"))
+    keys, queries, values, mask, sigma = k1_inputs(
+        GLOO_LONG_BATCH, 1536, 2048, 128, long_model.induced_to_trgt.rbf.sigma().item(), gen,
+        max_real="all", n_points=2048)
+    k1 = check_k1([
+        ("ctx->grid mesh", k1_inputs(MESH_BATCH // 2, 256, 192, 1, sig_ctx, gen, [0],
+                                     max_real=64)),
+        ("grid->trgt mesh", k1_inputs(MESH_BATCH // 2, 192, 256, 128, sig_trgt, gen,
+                                      max_real="all")),
+        ("grid->trgt long seq", (keys, queries[:, :1024].contiguous(), values, mask, sigma)),
+    ])
+    w = {"mesh": chain_weights(flag.decoder.module),
+         "long seq": chain_weights(long_model.decoder.module)}
+    rows = {"mesh": MESH_BATCH // 2 * 256, "long seq": GLOO_LONG_BATCH * 1024}
+    out = {"K1": k1}
+    with torch.inference_mode():
+        out["K2"] = check_k2([(f"decoder {n}", k2_inputs(rows[n], 128, 128, 3, 2, True, gen, w[n]),
+                               False) for n in w])
+        out["K3"] = check_k3([(f"decoder {n}", k3_inputs(rows[n], 128, 128, 3, 2, True, gen,
+                                                         w[n][:5]), False) for n in w])
+        out["K2-bf16"] = check_k2_bf16([(f"decoder {n}", k2_inputs(rows[n], 128, 128, 3, 2, True,
+                                                                   gen, w[n], BF16), False)
+                                        for n in w])
+        out["K3-bf16"] = check_k3_bf16([(f"decoder {n}", k3_inputs(rows[n], 128, 128, 3, 2, True,
+                                                                   gen, w[n][:5], BF16), False)
+                                        for n in w])
+    return out
+
+
+def run_mesh_phases(gen, smi) -> dict:
+    """Phases 37-38 and the dry run, after the mesh shapes' kernel checks.
+    -> {"kernels": rows by kernel, "paths": the graphed mesh paths'
+    launches, "times": their numbers}."""
+    phase("mesh kernels: K1, K2, K3, K2-bf16 and K3-bf16 at a rank's shard (the flagship's "
+          "B = 128 of 256; 1,024 of the 2 s path's 2,048 targets) vs plain")
+    kernels = check_mesh_kernels(gen)
+    release()
+    phase(f"the device mesh on one NCCL rank: bench.py's flagship at batch {MESH_BATCH} through "
+          "Trainer(mesh=...), graphed against eager and against no mesh, float32 and bf16")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+                                world_size=1, rank=0)
+        try:
+            nccl = {tag: check_mesh_nccl(dtype, smi) for tag, dtype in (("", None),
+                                                                         ("_bf16", BF16))}
+        finally:
+            dist.destroy_process_group()
+    release()
+    phase(f"the device mesh on two gloo ranks sharing the card: the flagship on data=2, the "
+          f"2 s k=37 path on seq=2 and a remat BatchNorm GridConvCNP on data=2, {GLOO_STEPS} "
+          "steps against one process; dryrun_multichip(1) started beside them")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:  # its rank starts while phase 38's do
+        dry = pool.submit(multichip.dryrun_multichip, 1)
+        gloo = check_mesh_gloo(smi)
+        print(f"dryrun_multichip(1) on the card: {dry.result()} after "
+              f"{time.perf_counter() - t0:.1f} s")
+    times = {f"nccl{tag}": r["times"] for tag, r in nccl.items()}
+    print(f"mesh paths (host clock; {smi}): " + json.dumps(dict(times, gloo=gloo)))
+    paths = {f"train_mesh{'_seq' if name != 'data' else ''}{tag}": path
+             for tag, r in nccl.items() for name, path in r["paths"].items()}
+    return dict(kernels=kernels, paths=paths, times=dict(times, gloo=gloo))
+
+
 def kernel_entry(name, source, replaces, launches, rows, path_shapes, launches_by_path):
     """One kernel's line entry: times summed over the shapes one train step
     runs, the largest error over every shape checked; `launches` is the
@@ -3759,6 +4144,14 @@ def main() -> int:
     k1_rows += tools["kernels"]["K1"]
     k2_rows += tools["kernels"]["K2"]
 
+    release()
+    mesh = run_mesh_phases(gen, smi)
+    k1_rows += mesh["kernels"]["K1"]
+    k2_rows += mesh["kernels"]["K2"]
+    k3_rows += mesh["kernels"]["K3"]
+    k2b_rows += mesh["kernels"]["K2-bf16"]
+    k3b_rows += mesh["kernels"]["K3-bf16"]
+
     families = {}
     for name, run_dir, dtype_steps, seeds in FAMILY_RUNS:
         for dtype, steps in zip((None, BF16), dtype_steps):
@@ -3793,7 +4186,7 @@ def main() -> int:
                 for k, p in fam16["score_paths"].items()},
              **{f"train_bf16_{k.replace(' ', '_')}": f["path"]
                 for k, f in fam16["train"].items()},
-             **tools["paths"]}
+             **tools["paths"], **mesh["paths"]}
     print(f"long-waveform batch times (host clock; {smi}): " + json.dumps(long_ms))
     print(f"latent batches, kernel vs plain path (host clock; {smi}): " + json.dumps(latent_batch))
 

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 from .distributions import NormalDiag, kl_normal_diag
+from .parallel.collectives import seq_sum
+from .parallel.mesh import active_mesh, has_seq_axis, seq_shard
 from .utils.helpers import logcumsumexp, sum_from_nth_dim
 
 __all__ = ["NPFOutput", "BaseLossNPF", "CNPFLoss", "NLLLossLNPF", "ELBOLossLNPF", "SUMOLossLNPF",
@@ -35,11 +37,18 @@ class NPFOutput(NamedTuple):
 
 
 def sum_log_prob_masked(p: NormalDiag, y: torch.Tensor, mask: Optional[torch.Tensor]):
-    """Per-point log-prob summed past (n_z, B), padded points masked out -> [n_z, B]."""
+    """Per-point log-prob summed past (n_z, B), padded points masked out -> [n_z, B].
+    In a mesh step with a seq axis `p` is the model's predictive on this
+    rank's slice of the targets: `y` and `mask` are cut to that slice here
+    (`parallel.seq_shard`), and the sum is taken over the seq group's
+    slices (`parallel.collectives.seq_sum`), before any logsumexp over z."""
+    mesh = active_mesh()
+    if has_seq_axis(mesh):
+        y, mask = seq_shard(y, mesh), None if mask is None else seq_shard(mask, mesh)
     log_p = p.log_prob(y)
     if mask is not None:
         log_p = log_p * mask.to(log_p.dtype)
-    return sum_from_nth_dim(log_p, 2)
+    return seq_sum(sum_from_nth_dim(log_p, 2))
 
 
 def _sum_log_prob_latent(q: NormalDiag, z: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,15 @@ mode, n_z_samples_test in eval mode. The noise comes from the `generator`
 passed to `forward` (the state's or the scorer's), or is given as `eps`.
 The deterministic family (n_z = 1) draws nothing.
 
+In a mesh step (`parallel.use_mesh`) the rows are this rank's block of the
+global batch, and the z noise is its rows of the global batch's draw
+(`parallel.collectives.global_randn`), the draw one process makes. With a
+seq axis everything up to and including the latent path (q(z|C,T) encodes
+every target) sees the whole target set, and the model decodes only this
+rank's slice of it (`seq_targets`; a grid model refuses the axis): the
+grid->targets SetConv, the decoder and the pooled scale (summed over the
+seq group).
+
 `dtype` is the JAX model's compute dtype: None computes in float32;
 bfloat16 runs every module in bf16 compute, as the JAX package's modules
 with `dtype=jnp.bfloat16` do, while parameters, BatchNorm statistics,
@@ -47,6 +56,8 @@ from torch import nn
 from ..distributions import NormalDiag
 from ..losses import NPFOutput
 from ..ops.mlp import MLP, Dense
+from ..parallel.collectives import global_randn, seq_masked_mean
+from ..parallel.mesh import active_mesh, has_seq_axis, seq_shard
 from ..utils import init as winit
 from ..utils.helpers import masked_mean
 
@@ -177,6 +188,9 @@ class NeuralProcessFamily(nn.Module):
                                                         cond_emb, generator, eps)
         if self.encoded_path == "latent":
             R = None
+        mesh = active_mesh()
+        if has_seq_axis(mesh):  # this rank decodes its slice of the targets
+            x_t, mask_trgt = self.seq_targets(x_t, mask_trgt, mesh)
         R_trgt = self.trgt_dependent_representation(x_c, z_samples, R, x_t, mask_cntxt)
         return NPFOutput(self.decode(x_t, R_trgt, mask_trgt), z_samples, q_zCc, q_zCct)
 
@@ -192,8 +206,16 @@ class NeuralProcessFamily(nn.Module):
             q_zCct = self.infer_latent_dist(R_from_trgt, mask_trgt)
         sampling = q_zCc if q_zCct is None else q_zCct
         n_z = self.n_z_samples_train if self.training else self.n_z_samples_test
+        mesh = active_mesh()
+        if eps is None and mesh is not None:  # this rank's rows of the global batch's draw
+            eps = global_randn(generator, (n_z,) + tuple(sampling.loc.shape), mesh,
+                               device=sampling.loc.device)
         z_samples = sampling.sample(generator, (n_z,), eps=eps)
         return z_samples, q_zCc, q_zCct
+
+    def seq_targets(self, x_t, mask_trgt, mesh):
+        """This rank's slice of the targets on a mesh's seq axis."""
+        return seq_shard(x_t, mesh), seq_shard(mask_trgt, mesh)
 
     def infer_latent_dist(self, R, mask) -> NormalDiag:
         suffstat = self.latent_encoder(self.rep_to_lat_input(R, mask))
@@ -224,7 +246,8 @@ class NeuralProcessFamily(nn.Module):
         if not self.is_heteroskedastic:  # pooled over the real targets
             if mask_trgt is None:
                 mask_trgt = torch.ones(scale.shape[1:3], dtype=torch.bool, device=scale.device)
-            pooled = masked_mean(scale, mask_trgt[None], dim=-2)
+            pool = seq_masked_mean if has_seq_axis(active_mesh()) else masked_mean
+            pooled = pool(scale, mask_trgt[None], dim=-2)
             scale = pooled[..., None, :].expand(scale.shape)
         return NormalDiag(loc.float(), scale.float())
 

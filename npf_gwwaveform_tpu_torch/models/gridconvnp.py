@@ -87,6 +87,10 @@ class GridConvCNP(NeuralProcessFamily):
     def trgt_dependent_representation(self, x_c, z_samples, R, x_t, mask_cntxt):
         return R[None]
 
+    def seq_targets(self, x_t, mask_trgt, mesh):
+        raise NotImplementedError("a grid model's targets are its grid, which the seq axis does "
+                                  "not split: ROADMAP queue 1, item 9")
+
 
 class GridConvLNP(GridConvCNP):
     """`encoded_path` "latent" (the default) or "both"; four blocks in both

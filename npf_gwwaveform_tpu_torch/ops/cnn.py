@@ -28,7 +28,10 @@ backward at the image shapes (`profile_conv.py`, PERF.md section 6). The
 
 `CNN(remat=True)` recomputes each block in the backward pass
 (`torch.utils.checkpoint`, JAX's `nn.remat`); BatchNorm moves its running
-statistics in the forward pass only, not again in the recomputation.
+statistics in the forward pass only, not again in the recomputation. The
+recomputation runs under the mesh the forward ran under: on CUDA it runs on
+the autograd engine's device thread, whose context holds no mesh, and a
+BatchNorm there would otherwise normalise with this rank's statistics.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import data_mean
+from ..parallel.mesh import active_mesh, use_mesh
 from ..utils import init as winit
 
 _CONVS = {1: nn.Conv1d, 2: nn.Conv2d}
@@ -50,11 +55,13 @@ _recomputing = False  # inside a remat block's recomputation
 
 
 @contextlib.contextmanager
-def _recomputation():
+def _recomputation(mesh):
+    """A remat block's recomputation, under the `mesh` its forward ran under."""
     global _recomputing
     saved, _recomputing = _recomputing, True
     try:
-        yield
+        with use_mesh(mesh):
+            yield
     finally:
         _recomputing = saved
 
@@ -102,10 +109,12 @@ class BatchNorm(nn.Module):
 
     Train mode (`module.train()`) normalises with the batch mean and the
     biased variance E[x^2] - E[x]^2 clamped at 0 (flax's fast variance) over
-    every axis but the channel's, with gradients through both, and moves the
-    running buffers
-    `mean` and `var` as running = momentum * running + (1 - momentum) * batch,
-    the biased variance included. Eval mode uses the running buffers.
+    every axis but the channel's (under a mesh step, `parallel.use_mesh`,
+    over the data axis' global batch: the ranks' means averaged, so that
+    every rank normalises and moves its buffers alike), with gradients
+    through both, and moves the running buffers `mean` and `var` as
+    running = momentum * running + (1 - momentum) * batch, the biased
+    variance included. Eval mode uses the running buffers.
     """
 
     def __init__(self, n_chan: int, eps: float = 1e-3, momentum: float = 0.9):
@@ -128,8 +137,11 @@ class BatchNorm(nn.Module):
         x = x.float()
         if self.training:
             dims = (0,) + tuple(range(2, x.dim()))
-            mean = x.mean(dim=dims)
-            var = ((x * x).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            mean, sq = x.mean(dim=dims), (x * x).mean(dim=dims)
+            mesh = active_mesh()
+            if mesh is not None:  # the statistics of the data axis' global batch
+                mean, sq = data_mean(mean, sq, mesh=mesh)
+            var = (sq - mean * mean).clamp_min(0.0)
             if not _recomputing:
                 with torch.no_grad():
                     self.mean.mul_(self.momentum).add_(mean.detach(), alpha=1.0 - self.momentum)
@@ -241,11 +253,12 @@ class CNN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _channel_first(x, self.n_spatial)
         remat = self.remat and self.training and torch.is_grad_enabled()
+        mesh = active_mesh()
         for i in range(self.n_blocks):
             block = getattr(self, f"block_{i}")
             if remat:
                 x = checkpoint(block, x, use_reentrant=False,
-                               context_fn=lambda: (contextlib.nullcontext(), _recomputation()))
+                               context_fn=lambda: (contextlib.nullcontext(), _recomputation(mesh)))
             else:
                 x = block(x)
         return x.movedim(1, -1)

@@ -101,14 +101,14 @@ __all__ = ["build_trainer", "batch_sampler", "checkpoint_chunks", "load_params_i
 
 
 def build_trainer(summary: dict, steps: int, device, seed: int = 0, use_kernels: bool = True,
-                  dtype: Optional[torch.dtype] = None) -> Trainer:
+                  dtype: Optional[torch.dtype] = None, mesh=None) -> Trainer:
     """The run's model in compute `dtype` (None: float32) drawn from the JAX
     init schemes with a generator seeded `seed`, on `device`, with its
     optimizer (the summary's `lr`, `decay_lr` and `grad_clip_norm`, each at
     `reproduce_gw.py`'s default when absent: the clip 1.0 for ConvLNP,
     `configs.default_clip`), its criterion (`configs.criterion_from_summary`)
     and the training splitter; the trainer's own generator is seeded `seed`
-    too."""
+    too. With `mesh` (`parallel.make_mesh`) the trainer trains on it."""
     device = torch.device(device)
     model = gw_model_from_summary(summary, use_kernels=use_kernels, dtype=dtype)
     init_module(model, torch.Generator().manual_seed(seed))
@@ -123,7 +123,7 @@ def build_trainer(summary: dict, steps: int, device, seed: int = 0, use_kernels:
         targets_getter=get_all_indcs,
     )
     return Trainer(model, criterion_from_summary(summary), optimizer, splitter,
-                   generator=torch.Generator(device=device).manual_seed(seed))
+                   generator=torch.Generator(device=device).manual_seed(seed), mesh=mesh)
 
 
 def checkpoint_chunks(steps: int) -> list:

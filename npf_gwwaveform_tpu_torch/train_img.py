@@ -81,12 +81,14 @@ def schedule(n_train: int, epochs: int, batch: int, steps: Optional[int] = None)
 
 def build_trainer(model_name: str, dataset: str, y_dim: int, epochs: int, steps_per_epoch: int,
                   device, seed: int = 0, remat: bool = False,
-                  use_kernels: bool = True, dtype: Optional[torch.dtype] = None) -> Trainer:
+                  use_kernels: bool = True, dtype: Optional[torch.dtype] = None,
+                  mesh=None) -> Trainer:
     """The model in compute `dtype` (None: float32) drawn with a generator
     seeded `seed` on `device`, its
     criterion, Adam with the staircase decay and the clip of 1.0, the
     training splitter (one context count a batch), the trainer's generator
-    seeded `seed` too."""
+    seeded `seed` too. With `mesh` (`parallel.make_mesh`) the trainer trains
+    on it."""
     device = torch.device(device)
     winit.set_realized_init(False)
     model = img_model(model_name, dataset, y_dim, use_kernels, remat, dtype=dtype)
@@ -96,7 +98,7 @@ def build_trainer(model_name: str, dataset: str, y_dim: int, epochs: int, steps_
                                steps_per_epoch=steps_per_epoch, grad_clip_norm=1.0)
     return Trainer(model, img_criterion(model_name), optimizer,
                    score_img.splitter_for(model_name, indep_n=False),
-                   generator=torch.Generator(device=device).manual_seed(seed))
+                   generator=torch.Generator(device=device).manual_seed(seed), mesh=mesh)
 
 
 def image_sampler(images: torch.Tensor, batch: int):

@@ -18,6 +18,12 @@ checkpoint resumes from both where JAX loads its state: without
 on, Adam, the schedule and the draws where they stopped; a run directory
 without `train_state.pt` restarts them). The steps run eagerly (the GP
 harness `train_gp` replays CUDA graphs).
+
+With `mesh=` (`parallel.make_mesh`) every rank makes the same call: the
+models train on the mesh's devices through `Trainer(mesh=...)`, one
+process's training; the valid and test losses cover the global batch.
+Rank 0 alone writes the run files, and every rank waits at a barrier
+before it reads them back (at resume and at the best epoch's reload).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.datasplit import CntxtTrgtSplitter, GetRandomIndcs, get_all_indcs
 from ..losses import CNPFLoss
@@ -63,6 +70,20 @@ def has_checkpoint(run_dir: str) -> bool:
     return os.path.exists(os.path.join(run_dir, "params.msgpack"))
 
 
+def _writes(trainer: Trainer) -> bool:
+    """Whether this process writes the run files: rank 0 of a mesh, or the
+    one process."""
+    return trainer.mesh is None or dist.get_rank() == 0
+
+
+def _checkpointed(trainer: Trainer, run_dir: str) -> bool:
+    """`has_checkpoint`, on a mesh once every rank (rank 0, the writer,
+    among them) has reached this point."""
+    if trainer.mesh is not None:
+        dist.barrier()
+    return has_checkpoint(run_dir)
+
+
 def _load(trainer: Trainer, run_dir: str) -> None:
     """The checkpoint's parameters and statistics, and its train state where
     the run directory has one."""
@@ -71,8 +92,9 @@ def _load(trainer: Trainer, run_dir: str) -> None:
 
 
 def _save(trainer: Trainer, run_dir: str) -> None:
-    save_run_params(run_dir, trainer.model)
-    save_train_state(run_dir, trainer)
+    if _writes(trainer):
+        save_run_params(run_dir, trainer.model)
+        save_train_state(run_dir, trainer)
 
 
 def train_models(datasets: Dict[str, object], models: Dict[str, object], criterion=None,
@@ -85,19 +107,21 @@ def train_models(datasets: Dict[str, object], models: Dict[str, object], criteri
                  patience: Optional[int] = None, is_retrain: bool = True,
                  is_continue_train: bool = False, models_kwargs: Optional[Dict] = None,
                  datasets_kwargs: Optional[Dict] = None, callbacks=(), verbose: int = 1,
-                 device="cuda") -> dict:
+                 device="cuda", mesh=None) -> dict:
     """Train every model (a module, copied and drawn anew from its init
     schemes with seed `seed + run` for each run, or a factory called with
     the overrides) on every dataset (`data.gp.GPDataset`-like:
     `epoch_batches`, `len`) for `runs` runs -> {"{data}/{model}/run_{i}":
     trainer}. Per-dataset and per-model overrides of `criterion`,
     `splitter`, `batch_size`, `grad_clip_norm`, `max_epochs` and `lr` come
-    from `datasets_kwargs` / `models_kwargs`; other keys go to a factory."""
+    from `datasets_kwargs` / `models_kwargs`; other keys go to a factory.
+    On a `mesh` the models train on its device (`device` is not read)."""
     criterion = CNPFLoss() if criterion is None else criterion
     if splitter is None:
         splitter = CntxtTrgtSplitter(contexts_getter=GetRandomIndcs(a=0.0, b=50),
                                      targets_getter=get_all_indcs)
     models_kwargs, datasets_kwargs = models_kwargs or {}, datasets_kwargs or {}
+    device = device if mesh is None else mesh.device
     results = {}
     for data_name, data_train in datasets.items():
         for model_name, model in models.items():
@@ -119,29 +143,31 @@ def train_models(datasets: Dict[str, object], models: Dict[str, object], criteri
                     data_valid=(valid_datasets or {}).get(data_name), run_dir=run_dir,
                     decay_lr=decay_lr, seed=seed + run, patience=patience, is_retrain=is_retrain,
                     is_continue_train=is_continue_train, callbacks=callbacks, verbose=verbose,
-                    **opts)
+                    mesh=mesh, **opts)
                 results[tag] = trainer
                 data_test = (test_datasets or {}).get(data_name)
                 if data_test is not None:
                     lls = eval_loglike(trainer, data_test, batch_size=opts["batch_size"], seed=123)
-                    np.savetxt(os.path.join(run_dir, "eval.csv"), lls, delimiter=",")
-                    if verbose:
+                    if _writes(trainer):
+                        np.savetxt(os.path.join(run_dir, "eval.csv"), lls, delimiter=",")
+                    if verbose and _writes(trainer):
                         print(f"{tag} | test log-likelihood {lls.mean():.2f}")
     return results
 
 
 def _train_single(model, criterion, splitter, data_train, data_valid, run_dir, max_epochs,
                   batch_size, lr, decay_lr, grad_clip_norm, seed, patience, is_retrain,
-                  is_continue_train, callbacks, verbose) -> Trainer:
+                  is_continue_train, callbacks, verbose, mesh=None) -> Trainer:
     device = next(model.parameters()).device
     steps_per_epoch = max(1, len(data_train) // batch_size)
     optimizer = make_optimizer(model.parameters(), lr=lr, decay_lr=decay_lr,
                                max_epochs=max_epochs, steps_per_epoch=steps_per_epoch,
                                grad_clip_norm=grad_clip_norm)
     trainer = Trainer(model, criterion, optimizer, splitter,
-                      generator=torch.Generator(device=device).manual_seed(seed))
-    write_model_summary(run_dir, model)
-    if (not is_retrain or is_continue_train) and has_checkpoint(run_dir):
+                      generator=torch.Generator(device=device).manual_seed(seed), mesh=mesh)
+    if _writes(trainer):
+        write_model_summary(run_dir, model)
+    if (not is_retrain or is_continue_train) and _checkpointed(trainer, run_dir):
         _load(trainer, run_dir)
         if not is_retrain:
             return trainer
@@ -166,16 +192,17 @@ def _train_single(model, criterion, splitter, data_train, data_valid, run_dir, m
         else:
             _save(trainer, run_dir)
         history.append(record)
-        write_history(run_dir, history)
+        if _writes(trainer):
+            write_history(run_dir, history)
         for cb in callbacks:
             cb(epoch=epoch, history=history, trainer=trainer)
-        if verbose:
+        if verbose and _writes(trainer):
             msg = f"  epoch {epoch + 1}/{max_epochs} train {record['train_loss']:.3f}"
             if "valid_loss" in record:
                 msg += f" valid {record['valid_loss']:.3f}"
             print(msg + f" ({record['dur']:.1f}s)")
         if patience is not None and bad_epochs >= patience:
             break
-    if has_checkpoint(run_dir):  # the best epoch's state, before the eval
+    if _checkpointed(trainer, run_dir):  # the best epoch's state, before the eval
         _load(trainer, run_dir)
     return trainer

@@ -17,6 +17,20 @@ the step is captured once in a CUDA graph (`utils.cuda_graph.StepGraph`,
 with the trainer's generator registered) and replayed, so the host launches
 one graph a step instead of some 1,650 kernels; on the CPU they take the
 eager step. A capture that fails raises.
+
+With `mesh=` (`parallel.make_mesh`) every rank runs the same calls on the
+same global batch, its generator seeded alike: each step draws the global
+batch's split (and `train_steps_generated` the global batch itself) on
+every rank, keeps this rank's rows (`parallel.shard_batch`), runs the
+forward and backward inside `parallel.use_mesh` (BatchNorm's statistics over
+the data axis, the target sum over the seq axis, the z noise drawn for the
+global batch), and then sums every gradient over all ranks in one
+all-reduce of their concatenation and divides by the rank count (for a
+"sum" criterion: by the seq axis' size), before the clip and the update:
+the one-process gradient. The reported loss rides in the same all-reduce:
+the global batch's. `eval_step` gathers the per-function losses of the
+whole batch. The graphed steps capture the all-reduces too, which NCCL
+allows and gloo does not: on a mesh of another backend they raise.
 """
 
 from __future__ import annotations
@@ -25,8 +39,11 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..losses import BaseLossNPF, NPFOutput
+from ..parallel.collectives import gather_rows
+from ..parallel.mesh import SEQ_AXIS, Mesh, shard_batch, use_mesh
 from ..utils.cuda_graph import StepGraph
 from .optim import AdamSchedule
 from .state import TrainState
@@ -36,10 +53,13 @@ __all__ = ["Trainer"]
 
 class Trainer:
     """(model, criterion, optimizer, splitter): splitter(generator, x, y,
-    condition=None) -> batch dict (`data.CntxtTrgtSplitter`)."""
+    condition=None) -> batch dict (`data.CntxtTrgtSplitter`); `mesh` (None:
+    one process) the ranks the steps run on."""
 
     def __init__(self, model: torch.nn.Module, criterion: BaseLossNPF, optimizer: AdamSchedule,
-                 splitter: Callable, generator: Optional[torch.Generator] = None):
+                 splitter: Callable, generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None):
+        self.mesh = mesh
         self.criterion = criterion
         self.eval_criterion = dataclasses.replace(criterion, reduction=None)
         self.splitter = splitter
@@ -60,20 +80,41 @@ class Trainer:
                           condition=batch.get("condition"), y_trgt=batch["Y_trgt"],
                           generator=self.state.generator if generator is None else generator)
 
+    def _split(self, generator: torch.Generator, x, y, cond) -> dict:
+        """The split of the (global) batch; on a mesh this rank's rows of it."""
+        batch = self.splitter(generator, x, y, condition=cond)
+        return batch if self.mesh is None else shard_batch(batch, self.mesh)
+
     def loss_and_grads(self, batch: dict) -> torch.Tensor:
         """Forward in train mode on a split batch and backward: the loss, with
-        every parameter's `.grad` set. Takes no optimizer step."""
+        every parameter's `.grad` set. Takes no optimizer step. On a mesh the
+        batch is this rank's rows (`_split`), and the loss and gradients are
+        the global batch's (`_all_reduce_grads`)."""
         self.model.train()
         self.state.optimizer.zero_grad()
-        loss = self.criterion(self._forward(batch), batch["Y_trgt"], batch["mask_trgt"],
-                              train=True)
-        loss.backward()
-        return loss.detach()
+        with use_mesh(self.mesh):
+            loss = self.criterion(self._forward(batch), batch["Y_trgt"], batch["mask_trgt"],
+                                  train=True)
+            loss.backward()
+        loss = loss.detach()
+        return loss if self.mesh is None else self._all_reduce_grads(loss)
+
+    def _all_reduce_grads(self, loss: torch.Tensor) -> torch.Tensor:
+        """Sum every gradient and the loss over all ranks in one all-reduce
+        and divide by the rank count ("mean" criterion) or the seq axis' size
+        ("sum": the seq ranks hold one loss) -> the global loss."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).float()])
+        dist.all_reduce(flat)
+        flat /= self.mesh.size if self.criterion.reduction == "mean" else self.mesh.axis_size(
+            SEQ_AXIS)
+        parts = flat[:-1].split([g.numel() for g in grads])
+        torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(parts, grads)])
+        return flat[-1]
 
     def _update(self, x, y, cond) -> dict:
         """The step's device work: split, forward, loss, backward, update."""
-        batch = self.splitter(self.state.generator, x, y, condition=cond)
-        loss = self.loss_and_grads(batch)
+        loss = self.loss_and_grads(self._split(self.state.generator, x, y, cond))
         return {"loss": loss, "grad_norm": self.state.optimizer.step()}
 
     def _step(self, x, y, cond) -> dict:
@@ -92,16 +133,20 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, x, y, generator: torch.Generator, cond=None) -> torch.Tensor:
         """Per-function eval loss [B] (NPML forced) in eval mode, split (and a
-        latent model's z drawn) with the given generator."""
+        latent model's z drawn) with the given generator; on a mesh every
+        function of the global batch, gathered over the data axis."""
         self.model.eval()
-        batch = self.splitter(generator, x, y, condition=cond)
-        return self.eval_criterion(self._forward(batch, generator), batch["Y_trgt"],
-                                   batch["mask_trgt"], train=False)
+        batch = self._split(generator, x, y, cond)
+        with use_mesh(self.mesh):
+            loss = self.eval_criterion(self._forward(batch, generator), batch["Y_trgt"],
+                                       batch["mask_trgt"], train=False)
+        return loss if self.mesh is None else gather_rows(loss, self.mesh)
 
     @torch.no_grad()
     def predict(self, batch: dict) -> NPFOutput:
         """The eval-mode forward on an already split batch (a latent model's
-        draws from the state's generator)."""
+        draws from the state's generator), the whole batch on every rank of a
+        mesh."""
         self.model.eval()
         return self._forward(batch)
 
@@ -122,6 +167,9 @@ class Trainer:
         return restore
 
     def _graph(self, key, fn, inputs=()) -> StepGraph:
+        if self.mesh is not None and self.mesh.backend != "nccl":
+            raise ValueError(f"a CUDA graph cannot capture {self.mesh.backend} collectives: "
+                             "train this mesh with train_step, or on an NCCL mesh")
         if key not in self.graphs:
             self.graphs[key] = StepGraph(fn, inputs, self.model, [self.state.generator],
                                          self._save_state)

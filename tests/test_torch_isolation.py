@@ -12,7 +12,8 @@ of GridConvCNP; in bfloat16, `score_gp --bf16` scores a ConvLNP run,
 functions and `gw_eval_ctx` sweeps one count on 2 waveforms, with
 matplotlib, pandas, PIL, imageio and seaborn blocked as well (every test
 here blocks them). Also: chip_smoke.py fails, printing no result, where
-it cannot run."""
+it cannot run; and a train step on a 2-rank gloo mesh runs in ranks that
+have JAX, flax and the JAX package blocked."""
 
 import json
 import os
@@ -237,3 +238,15 @@ def test_eval_tools_run_without_jax(tmp_path):
     assert os.path.exists(tmp_path / "extrapolation_RBF_Kernel.json")
     assert os.path.exists(tmp_path / "GW_time_cond_film_ctx192_d128" / "ConvCNP" / "run_1"
                           / "ctx_sweep.json")
+
+
+def test_mesh_step_runs_without_jax():
+    """Two gloo ranks, each with JAX, flax and the JAX package blocked
+    before it imports the port (`tests/torch_parallel_worker.py`), run one
+    train step of the tiny flagship on a `data` mesh and on `data` x `seq`."""
+    from npf_gwwaveform_tpu_torch.parallel.launch import run_ranks
+
+    ranks = run_ranks("torch_parallel_worker:isolated_mesh_step", 2, threads=1, timeout=120)
+    assert all(r["loaded"] == [] for r in ranks)
+    assert all(r["losses"] == ranks[0]["losses"] for r in ranks)
+    assert set(ranks[0]["losses"]) == {"data", "data_seq"}
